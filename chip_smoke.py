@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout, on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
+2. build: both CUDA kernels compiled by nvcc from ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel's wrapper against its plain PyTorch version on the
+   card, at the main path's shapes, in float32 and bf16, with its time, the
+   plain version's, a library call's where one exists, and the bound;
+4. parity: the paged engine on the card (kernels) and on the CPU (plain
+   versions) give identical tokens on the float32 smoke config;
+5. main path: qwen3-8b at full width (36 layers, d_model 4096, bf16, random
+   weights from --seed) serves 16 requests through Engine + run_closed_loop,
+   with the launch counts of both kernels checked against the run's
+   admissions and decode steps;
+6. profile: eight full decode steps timed on the host clock and eight more
+   traced with torch.profiler (device-busy time by kernel family, idle
+   share, launches per step).
+
+The last two lines are the ``{"kernels": [...]}`` summary and
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+beside this script, it exits non-zero before printing either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks by input type
+# (float32 is the CUDA-core rate: TF32 is off here)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+# phase 5's traffic: prompts of 128-1024 tokens drawn from --seed
+REQUESTS = 16
+NEW_TOKENS = 64
+
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:83"
+PAGED_REPLACES = "src/repro/kernels/paged_attention.py:89"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def phase(tag: str, **kv) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_generator(torch, rng):
+    return torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
+
+
+def randn(torch, shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def rotating(sets):
+    """A function returning the next of ``sets`` in turn, so repeated timed
+    calls do not all find one input set in the 50 MB L2 cache."""
+    state = {"i": 0}
+
+    def nxt():
+        s = sets[state["i"] % len(sets)]
+        state["i"] += 1
+        return s
+
+    return nxt
+
+
+# -- phase 3: kernels against their plain versions ------------------------------
+
+
+def check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch, max_len, page_size):
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    max_pages = -(-max_len // page_size)
+    num_pages = batch * max_pages + 1  # page 0 stays a dummy nobody owns
+    lengths = rng.integers(1, max_len + 1, size=batch)
+    lengths[0], lengths[-1] = 0, max_len  # an idle slot and a full one
+    pt = torch.zeros((batch, max_pages), dtype=torch.int32)
+    perm = rng.permutation(num_pages - 1) + 1
+    nxt_page = 0
+    for b in range(batch):
+        n = -(-int(lengths[b]) // page_size)
+        pt[b, :n] = torch.as_tensor(perm[nxt_page:nxt_page + n])
+        nxt_page += n
+    dev = "cuda"
+    n_tok = int(lengths.sum())
+    dbytes = torch.tensor([], dtype=dtype).element_size()
+    set_bytes = 2 * num_pages * page_size * KV * D * dbytes
+    gen = card_generator(torch, rng)
+    sets = []
+    for _ in range(min(4, max(1, math.ceil(150e6 / set_bytes)))):
+        sets.append((
+            randn(torch, (batch, 1, H, D), dtype, gen),
+            randn(torch, (num_pages, page_size, KV, D), dtype, gen),
+            randn(torch, (num_pages, page_size, KV, D), dtype, gen),
+            pt.to(dev), torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+        ))
+    q, pk, pv, ptd, lens = sets[0]
+    got = ops.paged_decode_attention(q, pk, pv, ptd, lens)
+    want = paged_mod.paged_decode_attention_plain(q[:, 0], pk, pv, ptd, lens)[:, None]
+    torch.cuda.synchronize()
+    name = str(dtype).replace("torch.", "")
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=TOL[name], rtol=TOL[name])
+    zero_row = got[0].abs().max().item() == 0.0
+    nx = rotating(sets)
+    ms = cuda_ms(torch, lambda: ops.paged_decode_attention(*nx()), 50)
+    plain_ms = cuda_ms(torch, lambda: paged_mod.paged_decode_attention_plain(
+        *(lambda s: (s[0][:, 0],) + s[1:])(nx())), 5)
+    nbytes = (2 * n_tok * KV * D + 2 * batch * H * D) * dbytes + pt.numel() * 4 + batch * 4
+    flops = 4.0 * n_tok * H * D
+    b_ms, b_by = bound(nbytes, flops, name)
+    phase("kernels", kernel="paged_decode_attention", dtype=name, B=batch, H=H, KV=KV,
+          D=D, page_size=page_size, lengths=f"{int(lengths.min())}..{int(lengths.max())}",
+          tokens=n_tok, max_abs_err=f"{err:.3e}", ok=ok, zero_len_row_zero=zero_row,
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+          bound_by=b_by)
+    if not ok:
+        fail(f"paged_decode_attention {name}: max |err| {err:.3e} > {TOL[name]}")
+    if not zero_row:
+        fail("paged_decode_attention: a length-0 row is not zero")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window):
+    import torch.nn.functional as F
+
+    H, KV, D, B = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 1
+    name = str(dtype).replace("torch.", "")
+    dbytes = torch.tensor([], dtype=dtype).element_size()
+    set_bytes = B * S * (2 * H + 2 * KV) * D * dbytes
+    gen = card_generator(torch, rng)
+    sets = [tuple(randn(torch, (B, S, n, D), dtype, gen) for n in (H, KV, KV))
+            for _ in range(min(8, max(1, math.ceil(150e6 / set_bytes))))]
+    q, k, v = sets[0]
+    scale = 1.0 / math.sqrt(D)
+    got = ops.flash_attention(q, k, v, window=window)
+    want = fa_mod.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, window
+    ).transpose(1, 2)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=TOL[name], rtol=TOL[name])
+    nx = rotating(sets)
+    iters = 20 if S >= 512 else 100
+    ms = cuda_ms(torch, lambda: ops.flash_attention(*nx(), window=window), iters)
+    plain_ms = cuda_ms(torch, lambda: fa_mod.flash_attention_plain(
+        *(x.transpose(1, 2) for x in nx()), scale, window), 3)
+
+    # yardstick only: one PyTorch call computing the same function on the
+    # same inputs (never called by the port)
+    qi = torch.arange(S, device="cuda")[:, None]
+    kj = torch.arange(S, device="cuda")[None, :]
+    mask = kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in nx()), attn_mask=None if window is None else mask,
+        is_causal=window is None, scale=scale, enable_gqa=True), iters)
+    pairs = int(mask.sum().item())
+    flops = 4.0 * B * H * D * pairs
+    nbytes = B * S * (2 * H + 2 * KV) * D * dbytes
+    b_ms, b_by = bound(nbytes, flops, name)
+    phase("kernels", kernel="flash_attention", dtype=name, B=B, S=S, H=H, KV=KV, D=D,
+          window=window, max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    if not ok:
+        fail(f"flash_attention {name} S={S} window={window}: max |err| {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+# -- phase 4: the whole path on the card against the CPU --------------------------
+
+
+def staggered_tokens(Engine, Request, model, params, prompts, new_tokens):
+    """Admit three requests at staggered steps into a paged engine, as the
+    ragged oracle test does; returns every request's tokens."""
+    eng = Engine(model, params, batch=3, max_len=64, kv_backend="paged")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    eng.admit(reqs[0])
+    eng.step()
+    eng.step()
+    eng.admit(reqs[1])
+    eng.step()
+    eng.admit(reqs[2])
+    while eng.num_live:
+        eng.step()
+    return [list(r.out_tokens) for r in reqs]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    try:
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import flash_attention as fa_mod
+        from repro_torch.kernels import paged_attention as paged_mod
+        from repro_torch.models import Model
+        from repro_torch.models.common import flatten, tree_to
+        from repro_torch.serving import Engine, Request, run_closed_loop
+    except ImportError as e:
+        fail(f"cannot import the port (run from the root of a checkout): {e}")
+    # 1. device ---------------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase("device", name=json.dumps(kind), count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          tf32="off (matmul and cudnn)")
+    print(smi.stdout.strip(), flush=True)  # the card's name and power limit, as is
+
+    # 2. build ----------------------------------------------------------------
+    t0 = time.monotonic()
+    _build.build_all()
+    phase("build", seconds=f"{time.monotonic() - t0:.1f}", dir=_build.build_dir(),
+          arch="sm_90a")
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    # 3. kernels against their plain versions, at the main path's shapes -------
+    rng = np.random.default_rng(args.seed)
+    cfg = get_config("qwen3-8b")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch=8, max_len=2048,
+                        page_size=16)
+        results[("paged", dtype)] = r
+        for S in (16, 48, 512, 2048):
+            for window in (None, S // 3 + 1):
+                r = check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window)
+                results[("flash", dtype, S, window)] = r
+
+    # 4. whole-path parity: the card's kernels against the CPU's plain path ----
+    scfg = get_smoke_config("qwen3-8b", dtype="float32")
+    smodel = Model(scfg)
+    params_cpu = smodel.init(args.seed, device="cpu")
+    params_gpu = tree_to(params_cpu, "cuda")
+    prompts = [rng.integers(1, scfg.vocab_size, size=L).astype(np.int32) for L in (3, 5, 9)]
+    want = staggered_tokens(Engine, Request, smodel, params_cpu, prompts, 6)
+    ops.reset_launches()
+    got = staggered_tokens(Engine, Request, smodel, params_gpu, prompts, 6)
+    counts = ops.launches()
+    phase("parity", config=scfg.name, cpu_tokens=want, cuda_tokens=got,
+          launches=json.dumps(counts))
+    if got != want:
+        fail("the card's out_tokens differ from the CPU's")
+    if min(counts.values()) == 0:
+        fail(f"parity run did not launch every kernel: {counts}")
+
+    # 5. main path at full width -------------------------------------------------
+    cfg = get_config("qwen3-8b")
+    model = Model(cfg)
+    t0 = time.monotonic()
+    params = model.init(args.seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in flatten(params).values())
+    phase("init", config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          dtype=cfg.dtype, params=n_params,
+          weight_gb=f"{n_params * 2 / 1e9:.2f}", seconds=f"{time.monotonic() - t0:.1f}")
+
+    # warm-up on its own engine (cuBLAS handles, allocator), not counted
+    warm = Engine(model, params, batch=2, max_len=256)
+    run_closed_loop(warm, [Request(rid=0, prompt=np.arange(1, 40, dtype=np.int32),
+                                   max_new_tokens=3)])
+    del warm
+
+    engine = Engine(model, params, batch=8, max_len=2048, kv_backend="auto", page_size=16)
+    if engine.kv_backend != "paged":
+        fail(f"auto backend chose {engine.kv_backend!r}, expected 'paged'")
+    plens = rng.integers(128, 1025, size=REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=int(L)).astype(np.int32),
+                    max_new_tokens=NEW_TOKENS) for i, L in enumerate(plens)]
+    probe = {"prefill": 0, "prefill_s": 0.0, "decode_s": 0.0,
+             "bad": torch.zeros((), dtype=torch.int64, device="cuda")}
+    orig_prefill, orig_decode = engine._prefill, engine._decode
+
+    def prefill(*a):
+        t = time.monotonic()
+        logits, c = orig_prefill(*a)
+        probe["bad"] += (~torch.isfinite(logits)).sum()
+        torch.cuda.synchronize()
+        probe["prefill"] += 1
+        probe["prefill_s"] += time.monotonic() - t
+        return logits, c
+
+    def decode(*a):
+        t = time.monotonic()
+        logits, c = orig_decode(*a)
+        probe["bad"] += (~torch.isfinite(logits)).sum()
+        torch.cuda.synchronize()
+        probe["decode_s"] += time.monotonic() - t
+        return logits, c
+
+    engine._prefill, engine._decode = prefill, decode
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stats = run_closed_loop(engine, reqs, seed=args.seed)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    bad = int(probe["bad"].item())
+    expect = {"flash_attention": probe["prefill"] * cfg.num_layers,
+              "paged_decode_attention": engine.steps * cfg.num_layers}
+    pct = lambda xs, p: float(np.percentile(xs, p)) if xs else float("nan")  # noqa: E731
+    phase("serve", served=stats.served, requests=len(reqs), tokens=stats.tokens,
+          prompt_tokens=int(plens.sum()), admissions=probe["prefill"], steps=engine.steps,
+          preempted=stats.preempted, wall_s=f"{stats.wall_s:.3f}",
+          throughput_rps=f"{stats.throughput:.3f}",
+          tokens_per_s=f"{stats.tokens / stats.wall_s:.1f}",
+          prefill_s=f"{probe['prefill_s']:.3f}", decode_s=f"{probe['decode_s']:.3f}",
+          ttft_p50_s=f"{pct(stats.ttft_s, 50):.4f}", ttft_p90_s=f"{pct(stats.ttft_s, 90):.4f}",
+          tpot_p50_s=f"{pct(stats.tpot_s, 50):.5f}", tpot_p90_s=f"{pct(stats.tpot_s, 90):.5f}",
+          peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          launches=json.dumps(counts), expected=json.dumps(expect), nonfinite_logits=bad)
+    if stats.served != len(reqs) or not all(r.done for r in reqs):
+        fail(f"served {stats.served} of {len(reqs)} requests")
+    if bad:
+        fail(f"{bad} non-finite logits on the main path")
+    if counts != expect:
+        fail(f"launch counts {counts} != expected {expect}")
+
+    # 6. where the decode step's time goes (after the counts were read)
+    profile_decode(torch, engine, cfg, rng, Request)
+
+    main_flash = results[("flash", torch.bfloat16, 512, None)]
+    main_paged = results[("paged", torch.bfloat16)]
+    summary = {"kernels": [
+        dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
+             replaces=FLASH_REPLACES, launches=counts["flash_attention"], **main_flash),
+        dict(name="paged_decode_attention", route="cuda", source=PAGED_SOURCE,
+             replaces=PAGED_REPLACES, launches=counts["paged_decode_attention"],
+             **main_paged),
+    ]}
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
+    """Fill every slot, time ``steps`` decode steps on the host clock, then
+    trace as many more with torch.profiler: device time by kernel family,
+    the device's idle share of the untraced step time, and the top rows of
+    the profiler's table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(engine.batch):
+        L = int(rng.integers(128, 1025))
+        engine.admit(Request(rid=10_000 + i, max_new_tokens=2 * steps + 4,
+                             prompt=rng.integers(1, cfg.vocab_size, size=L).astype(np.int32)))
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]  # not the ops
+    families = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in kernels:
+        us = e.self_device_time_total
+        name = e.key.lower()
+        if "paged_decode_kernel" in name:
+            families["paged_attention"] += us
+        elif any(w in name for w in ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma")):
+            families["matmul"] += us
+        else:
+            families["other"] += us
+    busy_ms = sum(families.values()) / steps / 1e3
+    phase("profile", steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
+          device_busy_ms_per_step=f"{busy_ms:.3f}",
+          device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.3f}",
+          **{f"{k}_ms_per_step": f"{v / steps / 1e3:.3f}" for k, v in families.items()},
+          kernels_per_step=sum(e.count for e in kernels) // steps)
+    print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    while engine.num_live:
+        engine.step()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,33 @@
+"""Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
+
+The port's own copy of the JAX package's registry, holding the
+architectures the port serves so far (the dense GQA path: qwen3-8b).  Each
+module cites its source model card; ``smoke`` variants are reduced
+same-family configs used by the CPU tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen3-8b": "qwen3_8b",
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def get_config(arch_id: str, **overrides) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    cfg: ModelConfig = mod.CONFIG
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_smoke_config(arch_id: str, **overrides) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    cfg: ModelConfig = mod.SMOKE
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

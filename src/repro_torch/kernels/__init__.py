@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas kernel
+of the JAX package that the port's path runs, each beside its plain
+PyTorch version:
+
+  * ``flash_attention``  — causal prefill attention (``csrc/flash_attention.cu``)
+  * ``paged_attention``  — one-token decode over a paged KV pool
+    (``csrc/paged_attention.cu``)
+
+:mod:`repro_torch.kernels.ops` holds the public wrappers; the kernels are
+compiled by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`), never
+at import.
+"""

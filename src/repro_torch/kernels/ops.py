@@ -1,0 +1,84 @@
+"""Public wrappers around the CUDA kernels, in model layout.
+
+A tensor on the CPU goes to the kernel's plain PyTorch version (the tests
+run there).  A tensor on a CUDA device goes to the kernel, which is built
+at first use; if it cannot run, the wrapper raises.  No path falls back to
+the plain version on a card.  Any other device raises.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` (CPU
+calls are not counted), so a run can show that its main path went through
+the kernels: set the counts to 0 with :func:`reset_launches`, run, read.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _paged
+
+
+def _route(t: torch.Tensor, what: str) -> bool:
+    """True for the kernel, False for the plain version."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, D) — model layout
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention; (B, S, H, D) out."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # views, no copy
+    if not _route(q, "flash_attention"):
+        return _fa.flash_attention_plain(qt, kt, vt, scale, window).transpose(1, 2)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _fa.launch(qt, kt, vt, out.transpose(1, 2), scale, window)
+    flash_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D) — model layout
+    pool_k: torch.Tensor,  # (num_pages, page_size, KV, D)
+    pool_v: torch.Tensor,
+    page_tables: torch.Tensor,  # (B, max_pages) int32
+    lengths: torch.Tensor,  # (B,) int32 — valid tokens per request
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode over the paged pool; (B, 1, H, D) out."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    q3 = q[:, 0]
+    if not _route(q, "paged_decode_attention"):
+        return _paged.paged_decode_attention_plain(
+            q3, pool_k, pool_v, page_tables, lengths, scale
+        )[:, None]
+    out = torch.empty(q3.shape, dtype=q.dtype, device=q.device)
+    _paged.launch(q3, pool_k, pool_v, page_tables, lengths, out, scale)
+    paged_decode_attention.launches += 1
+    return out[:, None]
+
+
+flash_attention.launches = 0
+paged_decode_attention.launches = 0
+
+WRAPPERS = (flash_attention, paged_decode_attention)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

@@ -1,0 +1,112 @@
+"""Paged one-token decode attention: the CUDA kernel's launcher and its plain
+version.
+
+The kernel (``csrc/paged_attention.cu``) replaces the Pallas
+``paged_decode_attention``: per request, f32 online softmax over its first
+``lengths[b]`` tokens, read page by page through its page table; query head
+``h`` reads KV head ``h // G``; a ``length == 0`` row gives zeros; page id 0
+is a legal dummy in unused table cells.
+
+Layouts (the reference kernel's):
+  q               : (B, H, D), any strides with a contiguous D
+  pool_k / pool_v : (num_pages, page_size, KV, D), contiguous
+  page_tables     : (B, max_pages) int32
+  lengths         : (B,) int32
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 16  # query heads per kv head the kernel takes (4 warps x 4 heads)
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,  # (B, H, D)
+    pool_k: torch.Tensor,  # (num_pages, page_size, KV, D)
+    pool_v: torch.Tensor,
+    page_tables: torch.Tensor,  # (B, max_pages) int32
+    lengths: torch.Tensor,  # (B,) int32
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The same function in plain PyTorch: gather each request's pages into a
+    flat cache, then a float32 masked softmax.  Rows with ``length == 0``
+    give zeros, as the kernels do (a softmax over nothing but masked scores
+    would average every gathered row instead)."""
+    B, H, D = q.shape
+    _, page_size, KV, _ = pool_k.shape
+    S = page_tables.shape[1] * page_size
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    pt = page_tables.long()
+    k = pool_k[pt].reshape(B, S, KV, D).float()
+    v = pool_v[pt].reshape(B, S, KV, D).float()
+    q4 = q.reshape(B, KV, G, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", q4, k) * scale
+    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]  # (B, S)
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v).reshape(B, H, D)
+    o = o.masked_fill((lengths <= 0)[:, None, None], 0.0)
+    return o.to(q.dtype)
+
+
+def launch(
+    q: torch.Tensor,  # (B, H, D)
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    page_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    out: torch.Tensor,  # (B, H, D) contiguous, written
+    scale: float,
+) -> None:
+    """Launch the CUDA kernel on q's current stream; raises on bad input or
+    a refused launch."""
+    B, H, D = q.shape
+    num_pages, page_size, KV, Dk = pool_k.shape
+    max_pages = page_tables.shape[1]
+    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+                    ("page_tables", page_tables), ("lengths", lengths), ("out", out)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"paged_decode_attention: {name} must be on q's CUDA device")
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v), ("out", out)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"paged_decode_attention: {name} dtype {t.dtype} != {q.dtype}")
+    for name, t in (("page_tables", page_tables), ("lengths", lengths)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"paged_decode_attention: {name} must be int32")
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v), ("page_tables", page_tables),
+                    ("lengths", lengths), ("out", out)):
+        if not t.is_contiguous():
+            raise ValueError(f"paged_decode_attention: {name} must be contiguous")
+    if q.stride(-1) != 1:
+        raise ValueError("paged_decode_attention: q needs a contiguous head_dim")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"paged_decode_attention: dtype {q.dtype} not supported")
+    if D not in HEAD_DIMS or Dk != D:
+        raise ValueError(f"paged_decode_attention: head_dim {D}/{Dk} not in {HEAD_DIMS}")
+    if pool_v.shape != pool_k.shape or out.shape != q.shape:
+        raise ValueError("paged_decode_attention: pool/out shapes disagree")
+    if page_tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError("paged_decode_attention: page_tables/lengths batch != q batch")
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):  # read as 16-byte chunks
+        if not _build.rows_aligned(t, 16):
+            raise ValueError(f"paged_decode_attention: {name} is not 16-byte aligned")
+    if H % KV or H // KV > MAX_GROUP:
+        raise ValueError(f"paged_decode_attention: {H} heads over {KV} kv heads unsupported")
+    fn = _build.load("paged_attention").repro_paged_decode_attention
+    rc = fn(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], B, H, KV, D, page_size, max_pages,
+        q.stride(0), q.stride(1), float(scale),
+        _build.stream_handle(q.device),
+    )
+    _build.check(rc, "paged_decode_attention")

@@ -1,0 +1,190 @@
+"""GQA attention (with qk-norm and RoPE): prefill, flat decode and paged
+decode.
+
+The port of the GQA part of the JAX package's ``models/attention.py``.
+Decode is *ragged*: ``pos`` is a per-request ``(B,)`` vector of positions,
+and negative positions mark idle slots whose cache writes are skipped.
+
+JAX returns new cache arrays; here the caches are updated **in place**
+(only the live rows are written), which is what lets a 36-layer page pool
+stay one allocation.  The functions still return the cache dict, so the
+call sites read like the reference.
+
+Caches carry no layer axis here; the transformer stacks them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import kernels_bridge
+from repro_torch.kernels import ops
+from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    specs: Dict[str, ParamSpec] = {
+        "wq": ((d, H * hd), "normal", None),
+        "wk": ((d, KV * hd), "normal", None),
+        "wv": ((d, KV * hd), "normal", None),
+        "wo": ((H * hd, d), "normal", None),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ((hd,), "ones", None)
+        specs["k_norm"] = ((hd,), "ones", None)
+    return specs
+
+
+def _gqa_qkv(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _check_full_attention(cfg: ModelConfig) -> None:
+    if cfg.sliding_window:
+        raise NotImplementedError(f"{cfg.name}: sliding-window ring caches are not ported")
+
+
+def gqa_prefill(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence causal attention that also emits the decode cache."""
+    _check_full_attention(cfg)
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    o = kernels_bridge.causal_attention(q, k, v)
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    return out, {"k": k, "v": v}
+
+
+def gqa_init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
+) -> Dict[str, torch.Tensor]:
+    _check_full_attention(cfg)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
+    }
+
+
+def normalize_pos(pos, batch: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Broadcast a scalar-or-(B,) position to ``(B,)`` and derive liveness.
+
+    Negative positions mark idle/padding slots: their logits are still
+    computed but their cache writes are skipped.
+    Returns ``(clamped_pos (B,), live (B,) bool)``."""
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=device).expand(batch)
+    return pos.clamp(min=0), pos >= 0
+
+
+def live_rows(live: torch.Tensor) -> torch.Tensor:
+    """Indices of the live slots.  Accepts a ``(B,)`` bool mask, or indices
+    already derived from one (the transformer derives them once per decode
+    step, since finding them waits for the device)."""
+    return live.nonzero().flatten() if live.dtype == torch.bool else live
+
+
+def _masked_row_update(
+    cache: torch.Tensor,  # (B, S, ...)
+    new: torch.Tensor,  # (B, 1, ...)
+    idx: torch.Tensor,  # (B,) — row to write, per batch element
+    live: torch.Tensor,  # (B,) bool, or live-slot indices
+) -> torch.Tensor:
+    """Write ``new[b]`` at row ``idx[b]`` of ``cache[b]`` for the live slots
+    only, in place; rows of dead slots stay untouched."""
+    rows = live_rows(live)
+    cache[rows, idx[rows]] = new[rows, 0]
+    return cache
+
+
+def gqa_decode(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: Dict[str, torch.Tensor],
+    pos,  # (B,) per-slot position of the new token (or scalar)
+    live: Optional[torch.Tensor] = None,  # (B,) bool or indices; None => pos >= 0
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against the flat ``(B, max_len, KV, hd)`` cache."""
+    _check_full_attention(cfg)
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim
+    cpos, derived_live = normalize_pos(pos, B, x.device)
+    live = derived_live if live is None else live
+    q, k_new, v_new = _gqa_qkv(p, cfg, x, cpos[:, None])
+    k = _masked_row_update(cache["k"], k_new, cpos, live)
+    v = _masked_row_update(cache["v"], v_new, cpos, live)
+    S = k.shape[1]
+    valid = torch.arange(S, device=x.device)[None, :] <= cpos[:, None]  # (B, S)
+    o = kernels_bridge.decode_attention(q, k, v, valid)
+    return o.reshape(B, 1, H * hd) @ p["wo"], cache
+
+
+# -- paged KV (shared page pool; the serving engine's production layout) ------
+
+
+def gqa_init_paged_cache(
+    cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype,
+    device: torch.device,
+) -> Dict[str, torch.Tensor]:
+    """Per-layer page pools.  One logical page id addresses a slab across all
+    layers, so one host-side :class:`~repro_torch.serving.paged_cache.PagePool`
+    table drives every layer's kernel."""
+    _check_full_attention(cfg)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "pool_k": torch.zeros((num_pages, page_size, KV, hd), dtype=dtype, device=device),
+        "pool_v": torch.zeros((num_pages, page_size, KV, hd), dtype=dtype, device=device),
+    }
+
+
+def gqa_decode_paged(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: Dict[str, torch.Tensor],  # {"pool_k","pool_v"} (P, ps, KV, hd)
+    page_tables: torch.Tensor,  # (B, max_pages) int32
+    pos,  # (B,) per-slot position of the new token
+    live: torch.Tensor,  # (B,) bool, or live-slot indices
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Ragged decode against the paged pool: the new token's k/v is written
+    into its slot's current page, for live slots only (JAX routes idle
+    slots to an out-of-bounds page and lets the scatter drop them; torch
+    indexing would raise, so the idle rows are simply not written), then
+    :func:`repro_torch.kernels.ops.paged_decode_attention` runs over the
+    pages — the CUDA kernel on a card, its plain version on the CPU.
+    The pools are updated in place."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim
+    cpos, _ = normalize_pos(pos, B, x.device)
+    q, k_new, v_new = _gqa_qkv(p, cfg, x, cpos[:, None])
+    pool_k, pool_v = cache["pool_k"], cache["pool_v"]
+    ps = pool_k.shape[1]
+    rows = live_rows(live)
+    page = page_tables[rows, cpos[rows] // ps].long()
+    off = cpos[rows] % ps
+    pool_k[page, off] = k_new[rows, 0]
+    pool_v[page, off] = v_new[rows, 0]
+    lengths = torch.zeros(B, dtype=torch.int32, device=x.device)
+    lengths[rows] = (cpos[rows] + 1).to(torch.int32)
+    o = ops.paged_decode_attention(q, pool_k, pool_v, page_tables, lengths)
+    return o.reshape(B, 1, H * hd) @ p["wo"], cache

@@ -1,0 +1,270 @@
+"""Config-driven decoder model: the dense GQA path.
+
+The port of the dense part of the JAX package's ``models/transformer.py``:
+``init``, ``embed``, ``logits``, ``prefill``, ``init_cache`` /
+``decode_step`` (flat KV), ``init_paged_cache`` / ``decode_step_paged``
+(paged KV) and ``scatter_prefill``.  Parameters are a plain nested dict
+with the JAX key tree; per-layer parameters are stacked along a leading
+layer axis, and the JAX ``lax.scan`` over that axis becomes a Python loop.
+
+Caches are updated in place (see :mod:`repro_torch.models.attention`);
+the methods still return them, as the reference's do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (
+    DTYPES, ParamSpec, init_params, resolve_device, rmsnorm,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mlp import mlp_forward, mlp_specs
+
+Params = Dict[str, Any]
+Device = Union[str, torch.device]
+
+
+def _layer(tree: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if cfg.arch_type != "dense" or cfg.attention_kind != "gqa" or cfg.modality != "text":
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves dense GQA text models only "
+                f"(arch_type={cfg.arch_type!r}, attention_kind={cfg.attention_kind!r})"
+            )
+
+    # ------------------------------------------------------------------ init --
+    def param_specs(self) -> Dict[str, ParamSpec]:
+        """Flat ``/``-joined key path -> (shape, init, scale): the key tree
+        and shapes of the JAX ``Model.init``."""
+        cfg = self.cfg
+        specs: Dict[str, ParamSpec] = {
+            "embed": ((cfg.padded_vocab, cfg.d_model), "normal", 0.02),
+        }
+        if not cfg.tie_embeddings:
+            specs["head"] = ((cfg.d_model, cfg.padded_vocab), "normal", None)
+        specs["final_norm"] = ((cfg.d_model,), "ones", None)
+        block: Dict[str, ParamSpec] = {"ln1": ((cfg.d_model,), "ones", None)}
+        block.update({f"attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
+        block["ln2"] = ((cfg.d_model,), "ones", None)
+        block.update({f"mlp/{k}": s for k, s in mlp_specs(cfg).items()})
+        for k, (shape, init, scale) in block.items():
+            specs[f"layers/{k}"] = ((cfg.num_layers,) + shape, init, scale)
+        return specs
+
+    def init(self, seed: int = 0, device: Device = "cuda") -> Params:
+        """Random parameters from ``seed`` (a ``torch.Generator`` on
+        ``device``), in the config's dtype."""
+        return init_params(
+            self.param_specs(), seed, resolve_device(device), DTYPES[self.cfg.dtype]
+        )
+
+    # --------------------------------------------------------------- forward --
+    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens]
+
+    def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        out = h @ head
+        if cfg.padded_vocab != cfg.vocab_size:
+            # mask the padding ids so sampling/softmax never sees them
+            out[..., cfg.vocab_size:] = -1e30
+        return out
+
+    def _mlp_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
+        return x + mlp_forward(lp["mlp"], h)
+
+    # ---------------------------------------------------------------- prefill --
+    def prefill(
+        self,
+        params: Params,
+        tokens: torch.Tensor,  # (B, S) int
+        lengths: Optional[torch.Tensor] = None,  # (B,) true lengths of right-padded rows
+    ) -> Tuple[torch.Tensor, Params]:
+        """Full-sequence serving prefill: last-token logits (at ``lengths-1``
+        for right-padded rows) and the decode cache of every layer, stacked
+        along a leading layer axis.  Cache rows past a row's length hold
+        padding that the decode-side validity mask never reads."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            a, c = attn.gqa_prefill(lp["attn"], cfg, h, positions)
+            x = self._mlp_residual(lp, x + a)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        if lengths is None:
+            last = x[:, -1:]
+        else:
+            last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None, :]
+        return self.logits(params, last), cache
+
+    # ----------------------------------------------------------------- decode --
+    def init_cache(self, batch: int, max_len: int, device: Device = "cuda") -> Params:
+        cfg = self.cfg
+        dev = resolve_device(device)
+        c = attn.gqa_init_cache(cfg, batch, max_len, DTYPES[cfg.dtype], dev)
+        L = cfg.num_layers
+        return {"layers": {k: v[None].repeat(L, *([1] * v.dim())) for k, v in c.items()}}
+
+    def decode_step(
+        self, params: Params, cache: Params, token: torch.Tensor, pos
+    ) -> Tuple[torch.Tensor, Params]:
+        """One ragged decode step against the flat cache.
+
+        token: (B, 1) int; pos: (B,) per-slot positions — each slot's next
+        cache index (== its current context length) — or a scalar.
+        ``pos[b] < 0`` marks an idle slot: its logits are still computed
+        but it writes nothing to the cache.  Returns (logits, cache)."""
+        return self._decode(params, cache, token, pos, paged=False)
+
+    # ------------------------------------------------------------- paged KV --
+    @property
+    def supports_paged_kv(self) -> bool:
+        cfg = self.cfg
+        return (
+            cfg.arch_type != "ssm"
+            and cfg.attention_kind == "gqa"
+            and not cfg.sliding_window
+        )
+
+    def init_paged_cache(
+        self, batch: int, num_pages: int, page_size: int, max_pages: int,
+        device: Device = "cuda",
+    ) -> Params:
+        """Per-layer page pools (one page id addresses a slab across all
+        layers) plus the batch's page tables, which the engine refreshes from
+        its :class:`~repro_torch.serving.paged_cache.PagePool` before each
+        step."""
+        cfg = self.cfg
+        if not self.supports_paged_kv:
+            raise ValueError(f"paged KV unsupported for {cfg.name}")
+        dev = resolve_device(device)
+        KV, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+        shape = (L, num_pages, page_size, KV, hd)
+        dtype = DTYPES[cfg.dtype]
+        return {
+            "page_tables": torch.zeros((batch, max_pages), dtype=torch.int32, device=dev),
+            "layers": {
+                "pool_k": torch.zeros(shape, dtype=dtype, device=dev),
+                "pool_v": torch.zeros(shape, dtype=dtype, device=dev),
+            },
+        }
+
+    def decode_step_paged(
+        self, params: Params, cache: Params, token: torch.Tensor, pos
+    ) -> Tuple[torch.Tensor, Params]:
+        """Like :meth:`decode_step` but with attention KV in page pools
+        (``cache`` from :meth:`init_paged_cache`)."""
+        return self._decode(params, cache, token, pos, paged=True)
+
+    def _decode(self, params, cache, token, pos, paged: bool):
+        cfg = self.cfg
+        B = token.shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device).expand(B)
+        # live-slot indices, found once per step: finding them waits for the
+        # device, which every layer doing it would turn into 2*L waits
+        rows = attn.live_rows(pos >= 0)
+        x = self.embed(params, token)
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            lc = _layer(cache["layers"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            if paged:
+                a, _ = attn.gqa_decode_paged(
+                    lp["attn"], cfg, h, lc, cache["page_tables"], pos, rows
+                )
+            else:
+                a, _ = attn.gqa_decode(lp["attn"], cfg, h, lc, pos, rows)
+            x = self._mlp_residual(lp, x + a)
+        return self.logits(params, x), cache
+
+    # ------------------------------------------------------ prefill scatter --
+    def scatter_prefill(
+        self,
+        cache: Params,
+        prefill_cache: Params,
+        slot: int,
+        length: int,
+        page_ids: Optional[Sequence[int]] = None,
+    ) -> Params:
+        """Scatter a batch-1 :meth:`prefill` cache into slot ``slot`` of an
+        engine batch cache (flat :meth:`init_cache` layout, or paged
+        :meth:`init_paged_cache` layout when ``page_ids`` — the slot's pages,
+        covering >= ``length`` tokens — is given), in place.  ``length`` is
+        the true prompt length; padding rows past it are never copied."""
+        return _scatter_node(cache, prefill_cache, slot, length, False, page_ids)
+
+
+# -- prefill-scatter helpers (admit path) -------------------------------------
+
+
+def _scatter_leaf(eng, pre, slot, length, stacked):
+    """Copy one batch-1 prefill leaf into an engine cache leaf at ``slot``.
+    Leaves whose sequence axis differs from the prefill's padded length copy
+    only the first ``length`` rows."""
+    b = 1 if stacked else 0
+    s = b + 1
+    if eng.dim() > s and eng.shape[s] != pre.shape[s]:
+        if stacked:
+            eng[:, slot, :length] = pre[:, 0, :length]
+        else:
+            eng[slot, :length] = pre[0, :length]
+    elif stacked:
+        eng[:, slot] = pre[:, 0]
+    else:
+        eng[slot] = pre[0]
+    return eng
+
+
+def _scatter_pages(pool, pre, page_ids, length, stacked):
+    """Scatter the first ``length`` prefill k/v rows into the slot's pages:
+    token t lands in (page_ids[t // page_size], t % page_size)."""
+    ps = pool.shape[2 if stacked else 1]
+    t = torch.arange(length, device=pool.device)
+    pi = torch.as_tensor(list(page_ids), dtype=torch.int64, device=pool.device)[t // ps]
+    off = t % ps
+    if stacked:
+        pool[:, pi, off] = pre[:, 0, :length]
+    else:
+        pool[pi, off] = pre[0, :length]
+    return pool
+
+
+def _scatter_node(eng, pre, slot, length, stacked, page_ids):
+    if isinstance(eng, dict):
+        out = {}
+        for key, sub in eng.items():
+            if key == "page_tables":
+                out[key] = sub  # refreshed by the engine
+            elif key == "pool_k":
+                out[key] = _scatter_pages(sub, pre["k"], page_ids, length, stacked)
+            elif key == "pool_v":
+                out[key] = _scatter_pages(sub, pre["v"], page_ids, length, stacked)
+            else:
+                out[key] = _scatter_node(
+                    sub, pre[key], slot, length, stacked or key == "layers", page_ids
+                )
+        return out
+    return _scatter_leaf(eng, pre, slot, length, stacked)

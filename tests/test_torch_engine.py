@@ -1,0 +1,244 @@
+"""The port's serving engine: the ragged continuous-batching oracle of the
+reference's engine tests replayed on the port, the port's tokens against
+the JAX engine's on the same bridged weights, and admission control."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.serving import Engine as JaxEngine  # noqa: E402
+from repro.serving import Request as JaxRequest  # noqa: E402
+from repro.serving import ServeStats as JaxServeStats  # noqa: E402
+from repro.serving import run_closed_loop as jax_run_closed_loop  # noqa: E402
+from repro.training.checkpoint import _flatten  # noqa: E402
+from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    Engine, OutOfPages, Request, ServeStats, run_closed_loop,
+)
+
+ARCH = "qwen3-8b"
+MAX_LEN = 64
+NEW_TOKENS = 6
+_CACHE = {}
+
+
+def port_model():
+    """The port's smoke model with its own seeded weights (bf16, as served)."""
+    if "port" not in _CACHE:
+        m = Model(get_smoke_config(ARCH))
+        _CACHE["port"] = (m, m.init(0, device="cpu"))
+    return _CACHE["port"]
+
+
+def bridged_fp32():
+    if "bridged" not in _CACHE:
+        jm = JaxModel(jax_smoke(ARCH, dtype="float32"), remat=False)
+        jp, _ = jm.init(jax.random.PRNGKey(0))
+        m = Model(get_smoke_config(ARCH, dtype="float32"))
+        _CACHE["bridged"] = (jm, jp, m, params_from_jax(_flatten(jp), m.cfg, device="cpu"))
+    return _CACHE["bridged"]
+
+
+def make_prompts(cfg, lengths, seed=7):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, size=L).astype(np.int32) for L in lengths]
+
+
+def solo_tokens(m, params, prompt, new_tokens=NEW_TOKENS):
+    """The oracle: the request decoded alone in a batch-1 flat engine."""
+    eng = Engine(m, params, batch=1, max_len=MAX_LEN, kv_backend="flat")
+    req = Request(rid=0, prompt=prompt, max_new_tokens=new_tokens)
+    run_closed_loop(eng, [req])
+    return list(req.out_tokens)
+
+
+@pytest.mark.parametrize("backend", ["flat", "paged"])
+def test_ragged_oracle_staggered_admits(backend):
+    """Three requests of different prompt lengths, admitted at staggered
+    steps: every request's tokens equal its solo decode."""
+    m, params = port_model()
+    prompts = make_prompts(m.cfg, (3, 5, 9))
+    solo = [solo_tokens(m, params, p) for p in prompts]
+    eng = Engine(m, params, batch=3, max_len=MAX_LEN, kv_backend=backend)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    eng.admit(reqs[0])
+    eng.step()
+    eng.step()
+    eng.admit(reqs[1])
+    eng.step()
+    eng.admit(reqs[2])
+    while eng.num_live:
+        eng.step()
+    for req, want in zip(reqs, solo):
+        assert req.out_tokens == want, (req.rid, req.out_tokens, want)
+
+
+@pytest.mark.parametrize("backend", ["flat", "paged"])
+def test_ragged_oracle_slot_reuse(backend):
+    """More requests than slots: freed slots are re-admitted at new offsets
+    and the oracle still holds for every request."""
+    m, params = port_model()
+    prompts = make_prompts(m.cfg, (4, 7, 3, 6, 5), seed=11)
+    solo = [solo_tokens(m, params, p) for p in prompts]
+    eng = Engine(m, params, batch=2, max_len=MAX_LEN, kv_backend=backend)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    stats = run_closed_loop(eng, reqs)
+    assert stats.served == len(reqs)
+    for req, want in zip(reqs, solo):
+        assert req.out_tokens == want, (req.rid, req.out_tokens, want)
+
+
+@pytest.mark.parametrize("backend", ["flat", "paged"])
+def test_tokens_equal_jax_engine_on_bridged_weights(backend):
+    """Token for token, the port's engine and the JAX engine agree on the
+    same float32 weights, through slot reuse and a 16-token bucket boundary."""
+    jm, jp, m, tp = bridged_fp32()
+    prompts = make_prompts(m.cfg, (4, 17, 3, 9, 12), seed=5)
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    treqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    jax_run_closed_loop(JaxEngine(jm, jp, batch=2, max_len=MAX_LEN, kv_backend=backend), jreqs)
+    eng = Engine(m, tp, batch=2, max_len=MAX_LEN, kv_backend=backend)
+    assert eng.kv_backend == backend
+    run_closed_loop(eng, treqs)
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens, j.out_tokens)
+
+
+def test_auto_backend_is_paged_and_rejects_unknown():
+    m, params = port_model()
+    assert Engine(m, params, batch=1, max_len=MAX_LEN).kv_backend == "paged"
+    with pytest.raises(ValueError):
+        Engine(m, params, batch=1, max_len=MAX_LEN, kv_backend="ring")
+
+
+def test_admission_refused_on_pool_exhaustion_then_recovers():
+    """A pool too small for the whole batch refuses admission (OutOfPages,
+    never a silent clamp); the loop completes once slots free up and every
+    page returns to the pool."""
+    m, params = port_model()
+    eng = Engine(m, params, batch=3, max_len=MAX_LEN, kv_backend="paged",
+                 page_size=4, num_pages=6)
+    reqs = [Request(rid=i, prompt=np.arange(1, 8, dtype=np.int32), max_new_tokens=2)
+            for i in range(4)]
+    e2 = Engine(m, params, batch=3, max_len=MAX_LEN, kv_backend="paged",
+                page_size=4, num_pages=1)
+    with pytest.raises(OutOfPages):
+        e2.admit(Request(rid=99, prompt=np.arange(1, 8, dtype=np.int32), max_new_tokens=2))
+    assert e2.pool.free_pages == 1 and e2.num_live == 0
+    stats = run_closed_loop(eng, reqs)
+    assert stats.served == 4
+    assert stats.preempted == 0  # nobody grows past 2 pages
+    assert all(r.done for r in reqs)
+    assert eng.pool.free_pages == eng.pool.num_pages
+
+
+def test_mid_decode_exhaustion_preempts_and_completes():
+    m, params = port_model()
+    eng = Engine(m, params, batch=3, max_len=MAX_LEN, kv_backend="paged",
+                 page_size=4, num_pages=5)
+    reqs = [Request(rid=i, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=8)
+            for i in range(4)]
+    stats = run_closed_loop(eng, reqs)
+    assert stats.served == 4
+    assert stats.preempted > 0
+    assert all(len(r.out_tokens) == 8 for r in reqs)
+    assert eng.pool.free_pages == eng.pool.num_pages
+
+
+def test_failed_prefill_releases_pool_reservation():
+    m, params = port_model()
+    eng = Engine(m, params, batch=2, max_len=MAX_LEN, kv_backend="paged",
+                 page_size=4, num_pages=8)
+    free_before = list(eng.pool._free)
+    req = Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=2)
+    good_prefill = eng._prefill
+
+    def boom(*a, **k):
+        raise RuntimeError("injected prefill failure")
+
+    eng._prefill = boom
+    with pytest.raises(RuntimeError, match="injected"):
+        eng.admit(req)
+    assert eng.pool._free == free_before
+    assert eng.slots == [None, None] and req.out_tokens == []
+    eng._prefill = good_prefill
+    eng.admit(req)  # the same rid re-admits cleanly
+    while eng.num_live:
+        eng.step()
+    assert req.done
+    assert eng.pool.free_pages == eng.pool.num_pages
+
+
+def test_ttft_includes_the_prefill():
+    """TTFT runs from the start of admission, prefill included (the
+    reference stamps ``submitted_s`` only after its prefill)."""
+    m, params = port_model()
+    eng = Engine(m, params, batch=1, max_len=MAX_LEN)
+    prefill = eng._prefill
+
+    def slow_prefill(*a):
+        time.sleep(0.05)
+        return prefill(*a)
+
+    eng._prefill = slow_prefill
+    req = Request(rid=0, prompt=np.arange(1, 5, dtype=np.int32), max_new_tokens=2)
+    stats = run_closed_loop(eng, [req])
+    assert stats.ttft_s[0] >= 0.05
+
+
+def test_seeded_sampling_reproducible():
+    m, params = port_model()
+    prompts = make_prompts(m.cfg, (4, 4, 4), seed=3)
+
+    def run(temp, seed):
+        eng = Engine(m, params, batch=2, max_len=MAX_LEN, temperature=temp, top_k=8)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)]
+        run_closed_loop(eng, reqs, seed=seed)
+        return [list(r.out_tokens) for r in reqs]
+
+    assert run(0.0, 0) == run(0.0, 1)
+    assert run(0.8, 5) == run(0.8, 5)
+    assert run(0.8, 5) != run(0.8, 6)
+
+
+def test_measured_feedback_is_duck_typed():
+    m, params = port_model()
+    seen = []
+
+    class Measured:
+        def observe(self, service, size, batch, throughput):
+            seen.append((service, size, batch, throughput))
+
+    reqs = [Request(rid=i, prompt=np.arange(1, 5, dtype=np.int32), max_new_tokens=3)
+            for i in range(3)]
+    run_closed_loop(Engine(m, params, batch=2, max_len=MAX_LEN), reqs,
+                    measured=Measured(), service=ARCH, size=16)
+    assert len(seen) == 1 and seen[0][:3] == (ARCH, 16, 2) and seen[0][3] > 0
+
+
+def test_stats_summary_schema_equals_reference():
+    stats = ServeStats(served=3, tokens=12, ttft_s=[0.1, 0.2], tpot_s=[0.01], wall_s=2.0)
+    ref = JaxServeStats(served=3, tokens=12, ttft_s=[0.1, 0.2], tpot_s=[0.01], wall_s=2.0)
+    assert stats.summary(ARCH) == ref.summary(ARCH)
+
+
+def test_serve_cli_on_cpu_writes_stats_json(tmp_path, capsys):
+    out = tmp_path / "stats.json"
+    serve.main(["--device", "cpu", "--requests", "3", "--batch", "2", "--new-tokens", "3",
+                "--stats-json", str(out)])
+    assert "served=3" in capsys.readouterr().out
+    summary = json.loads(out.read_text())
+    assert summary["counters"]["serving.completed"] == 3.0
+    assert set(summary["latency"]) == set(ServeStats().summary()["latency"])

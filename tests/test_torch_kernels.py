@@ -1,0 +1,188 @@
+"""The port's kernel modules on the CPU: each kernel's plain PyTorch version
+against the JAX package's Pallas kernel (interpret mode) and its jnp
+oracle, on the same numpy inputs; and the wrappers' device routing."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
+from repro.kernels.paged_attention import paged_decode_attention  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_decode_attention_plain  # noqa: E402
+
+# the reference kernel tests' own bounds (tests/test_kernels.py, tests/test_paged.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+PAGED_TOL = 3e-5
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def both(x: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor (bf16 rounds the
+    same float32 input to nearest-even on both sides)."""
+    return jnp.asarray(x, JNP[dtype]), torch.from_numpy(x).to(TORCH[dtype])
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,KV,S,D,bq,bk",
+    [
+        (1, 2, 2, 128, 64, 64, 64),   # MHA
+        (2, 4, 2, 256, 64, 128, 64),  # GQA
+        (1, 8, 1, 256, 128, 64, 128), # MQA, head_dim 128
+        (2, 2, 2, 192, 32, 64, 96),   # uneven-ish blocks
+    ],
+)
+def test_flash_plain_matches_pallas_and_ref(B, H, KV, S, D, bq, bk, dtype):
+    rng = np.random.default_rng(S + H)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(normal(rng, s), dtype) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))
+    )
+    got = f32(flash_attention_plain(qt, kt, vt))
+    tol = FLASH_TOL[dtype]
+    pallas = flash_attention_bhsd(qj, kj, vj, block_q=bq, block_k=bk, interpret=True)
+    np.testing.assert_allclose(got, f32(pallas), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, f32(ref.flash_attention_ref(qj, kj, vj)), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [64, 128])
+def test_flash_plain_sliding_window(window):
+    B, H, KV, S, D = 1, 2, 2, 256, 64
+    rng = np.random.default_rng(window)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(normal(rng, s), "float32") for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))
+    )
+    got = f32(flash_attention_plain(qt, kt, vt, window=window))
+    pallas = flash_attention_bhsd(qj, kj, vj, window=window, block_q=64, block_k=64,
+                                  interpret=True)
+    np.testing.assert_allclose(got, f32(pallas), atol=2e-5, rtol=2e-5)
+    want = ref.flash_attention_ref(qj, kj, vj, window=window)
+    np.testing.assert_allclose(got, f32(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window", [(16, None), (48, None), (48, 20)])
+def test_flash_plain_ragged_lengths_match_ref(S, window, dtype):
+    """The engine's 16-token prefill buckets: lengths the Pallas kernel's
+    tiling refuses, so only the oracle speaks for them."""
+    B, H, KV, D = 2, 4, 2, 32
+    rng = np.random.default_rng(S)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(normal(rng, s), dtype) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))
+    )
+    got = f32(flash_attention_plain(qt, kt, vt, window=window))
+    want = f32(ref.flash_attention_ref(qj, kj, vj, window=window))
+    np.testing.assert_allclose(got, want, atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+def _paged_inputs(rng, B, H, KV, D, num_pages, page_size, max_pages, zero_row):
+    q = normal(rng, (B, H, D))
+    pk = normal(rng, (num_pages, page_size, KV, D))
+    pv = normal(rng, (num_pages, page_size, KV, D))
+    pt = rng.integers(0, num_pages, size=(B, max_pages)).astype(np.int32)
+    lengths = rng.integers(1, max_pages * page_size + 1, size=(B,)).astype(np.int32)
+    if zero_row:
+        lengths[-1] = 0
+    return q, pk, pv, pt, lengths
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,D,num_pages,page_size,max_pages,zero_row",
+    [
+        (2, 4, 2, 64, 8, 16, 3, False),
+        (3, 8, 2, 64, 16, 32, 4, False),
+        (1, 8, 1, 128, 8, 64, 2, False),  # MQA
+        (2, 4, 4, 32, 12, 8, 6, False),   # MHA small pages
+        (3, 4, 2, 32, 10, 8, 4, True),    # an idle slot: length 0
+    ],
+)
+def test_paged_plain_matches_pallas_and_ref(B, H, KV, D, num_pages, page_size, max_pages,
+                                            zero_row):
+    rng = np.random.default_rng(num_pages)
+    q, pk, pv, pt, lengths = _paged_inputs(rng, B, H, KV, D, num_pages, page_size,
+                                           max_pages, zero_row)
+    got = paged_decode_attention_plain(
+        *(torch.from_numpy(x) for x in (q, pk, pv, pt, lengths))
+    ).numpy()
+    jargs = [jnp.asarray(x) for x in (q, pk, pv, pt, lengths)]
+    pallas = np.asarray(paged_decode_attention(*jargs, interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=PAGED_TOL, rtol=PAGED_TOL)
+    # the jnp oracle averages every gathered row for a length-0 request
+    # (softmax over nothing but masked scores); the kernels give zeros
+    live = lengths > 0
+    oracle = np.asarray(ref.paged_decode_attention_ref(*jargs))
+    np.testing.assert_allclose(got[live], oracle[live], atol=PAGED_TOL, rtol=PAGED_TOL)
+    assert np.all(got[~live] == 0.0)
+
+
+def test_ops_wrappers_route_cpu_to_plain_versions_without_counting():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(normal(rng, (2, 16, 4, 32)))
+    k = torch.from_numpy(normal(rng, (2, 16, 2, 32)))
+    v = torch.from_numpy(normal(rng, (2, 16, 2, 32)))
+    before = ops.launches()
+    out = ops.flash_attention(q, k, v)
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    torch.testing.assert_close(out, want.transpose(1, 2), atol=0, rtol=0)
+
+    qd, pk, pv, pt, lengths = _paged_inputs(rng, 2, 4, 2, 32, 6, 8, 3, True)
+    outd = ops.paged_decode_attention(
+        torch.from_numpy(qd)[:, None], torch.from_numpy(pk), torch.from_numpy(pv),
+        torch.from_numpy(pt), torch.from_numpy(lengths),
+    )
+    wantd = paged_decode_attention_plain(
+        *(torch.from_numpy(x) for x in (qd, pk, pv, pt, lengths))
+    )
+    torch.testing.assert_close(outd[:, 0], wantd, atol=0, rtol=0)
+    assert ops.launches() == before  # the CPU path launches no kernel
+
+
+def test_ops_wrappers_refuse_other_devices():
+    """Neither a kernel nor its plain version runs on a device the wrapper
+    does not know: it raises rather than copying to the CPU."""
+    q = torch.empty((1, 16, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="meta"):
+        ops.paged_decode_attention(
+            q[:, :1], torch.empty((4, 8, 2, 32), device="meta"),
+            torch.empty((4, 8, 2, 32), device="meta"),
+            torch.empty((1, 2), dtype=torch.int32, device="meta"),
+            torch.empty((1,), dtype=torch.int32, device="meta"),
+        )
+
+
+def test_reset_launches_zeroes_every_counter():
+    ops.flash_attention.launches = 3
+    ops.paged_decode_attention.launches = 5
+    ops.reset_launches()
+    assert ops.launches() == {"flash_attention": 0, "paged_decode_attention": 0}
+
+
+def test_rows_aligned_guards_the_kernels_16_byte_loads():
+    """The kernels read K/V rows as 16-byte chunks; the launchers refuse a
+    tensor whose rows do not start on 16-byte boundaries."""
+    from repro_torch.kernels import _build
+
+    t = torch.zeros((4, 8, 2, 32), dtype=torch.bfloat16)
+    assert _build.rows_aligned(t, 16)
+    assert _build.rows_aligned(t.transpose(1, 2), 16)  # strides stay multiples
+    assert not _build.rows_aligned(t[..., 1:], 16)  # rows start 2 bytes in
+    assert not _build.rows_aligned(torch.zeros((4, 8, 2, 36), dtype=torch.bfloat16)[..., :32], 16)

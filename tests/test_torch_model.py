@@ -1,0 +1,170 @@
+"""The port's config, weight bridge and dense model against the JAX
+package's, on the same bridged weights."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.training.checkpoint import _flatten  # noqa: E402
+from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.common import flatten  # noqa: E402
+
+ARCH = "qwen3-8b"
+_CACHE = {}
+
+
+def bridged(dtype):
+    """(jax model, jax params, port model, port params) on one set of weights."""
+    if dtype not in _CACHE:
+        jcfg = jax_smoke(ARCH, dtype=dtype)
+        jm = JaxModel(jcfg, remat=False)
+        jp, _ = jm.init(jax.random.PRNGKey(0))
+        cfg = get_smoke_config(ARCH, dtype=dtype)
+        tp = params_from_jax(_flatten(jp), cfg, device="cpu")
+        _CACHE[dtype] = (jm, jp, Model(cfg), tp)
+    return _CACHE[dtype]
+
+
+def f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("getter", ["full", "smoke"])
+def test_config_copy_equals_reference_field_by_field(getter):
+    if getter == "full":
+        mine, theirs = get_config(ARCH), jax_config(ARCH)
+    else:
+        mine, theirs = get_smoke_config(ARCH, dtype="float32"), jax_smoke(ARCH, dtype="float32")
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert mine.padded_vocab == theirs.padded_vocab
+    assert mine.param_count() == theirs.param_count()
+    assert mine.kv_bytes_per_token() == theirs.kv_bytes_per_token()
+
+
+def test_bridge_round_trip_covers_every_key():
+    jm, jp, m, tp = bridged("float32")
+    flat = _flatten(jp)
+    mine = flatten(tp)
+    assert sorted(mine) == sorted(flat)  # none missing, none extra
+    assert sorted(m.param_specs()) == sorted(flat)
+    for key, arr in flat.items():
+        assert tuple(mine[key].shape) == arr.shape, key
+        np.testing.assert_array_equal(mine[key].numpy(), arr)
+
+
+def test_bridge_refuses_missing_extra_and_misshapen_keys():
+    _, jp, m, _ = bridged("float32")
+    flat = _flatten(jp)
+    cfg = m.cfg
+    with pytest.raises(ValueError, match="missing"):
+        params_from_jax({k: v for k, v in flat.items() if k != "head"}, cfg, device="cpu")
+    with pytest.raises(ValueError, match="unexpected"):
+        params_from_jax({**flat, "mtp/proj": flat["head"]}, cfg, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax({**flat, "head": flat["head"][:, :8]}, cfg, device="cpu")
+
+
+def test_bf16_bridge_goes_through_float32():
+    jm, jp, m, tp = bridged("bfloat16")
+    assert tp["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    want = np.asarray(jp["layers"]["attn"]["wq"], np.float32)
+    np.testing.assert_array_equal(tp["layers"]["attn"]["wq"].float().numpy(), want)
+
+
+def test_seeded_init_has_reference_shapes_and_is_reproducible():
+    _, jp, m, _ = bridged("float32")
+    a, b, c = (m.init(seed, device="cpu") for seed in (3, 3, 4))
+    shapes = {k: tuple(v.shape) for k, v in flatten(a).items()}
+    assert shapes == {k: v.shape for k, v in _flatten(jp).items()}
+    for k, v in flatten(a).items():
+        assert torch.equal(v, flatten(b)[k]), k
+    assert not torch.equal(flatten(a)["layers/attn/wq"], flatten(c)["layers/attn/wq"])
+    assert torch.all(flatten(a)["layers/ln1"] == 1)
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    _, _, m, _ = bridged("float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        m.init(0)  # the default device is cuda: no silent CPU fallback
+
+
+def _prefill_inputs(cfg):
+    rng = np.random.default_rng(1)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    lengths = np.array([21, 32], np.int32)  # one right-padded row
+    return toks, lengths
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
+def test_prefill_logits_and_cache_match_jax(dtype, tol):
+    jm, jp, m, tp = bridged(dtype)
+    toks, lengths = _prefill_inputs(m.cfg)
+    jl, jc = jm.prefill(jp, tokens=jnp.asarray(toks), lengths=jnp.asarray(lengths))
+    tl, tc = m.prefill(tp, torch.from_numpy(toks).long(), torch.from_numpy(lengths))
+    assert tl.shape == jl.shape
+    np.testing.assert_allclose(f32(tl), f32(jl), atol=tol, rtol=tol)
+    np.testing.assert_allclose(f32(tc["layers"]["k"]), f32(jc["layers"]["k"]), atol=tol, rtol=tol)
+    # the padded vocab tail is masked
+    assert np.all(f32(tl)[..., m.cfg.vocab_size:] <= -1e29)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
+def test_decode_logits_match_jax(dtype, tol, paged):
+    """Four ragged decode steps from per-slot positions, slot 2 idle, on the
+    flat or the paged cache; live rows' logits match (idle rows' are
+    discarded by the engine, and the two packages fill them differently)."""
+    jm, jp, m, tp = bridged(dtype)
+    B, ps, max_pages = 3, 4, 4
+    rng = np.random.default_rng(2)
+    if paged:
+        jcache = jm.init_paged_cache(B, 16, ps, max_pages)
+        tcache = m.init_paged_cache(B, 16, ps, max_pages, device="cpu")
+        pt = np.array([[5, 9, 2, 0], [1, 3, 4, 0], [0, 0, 0, 0]], np.int32)
+        jcache["page_tables"] = jnp.asarray(pt)
+        tcache["page_tables"].copy_(torch.from_numpy(pt))
+        jstep, tstep = jax.jit(jm.decode_step_paged), m.decode_step_paged
+    else:
+        jcache = jm.init_cache(B, 16)
+        tcache = m.init_cache(B, 16, device="cpu")
+        jstep, tstep = jax.jit(jm.decode_step), m.decode_step
+    pos = np.array([0, 3, -1], np.int32)
+    live = pos >= 0
+    for _ in range(4):
+        tok = rng.integers(1, m.cfg.vocab_size, size=(B, 1)).astype(np.int32)
+        jl, jcache = jstep(jp, jcache, jnp.asarray(tok), jnp.asarray(pos))
+        tl, tcache = tstep(tp, tcache, torch.from_numpy(tok).long(), torch.from_numpy(pos))
+        np.testing.assert_allclose(f32(tl)[live], f32(jl)[live], atol=tol, rtol=tol)
+        pos = np.where(live, pos + 1, pos)
+    for key in ("pool_k", "pool_v") if paged else ("k", "v"):
+        np.testing.assert_allclose(f32(tcache["layers"][key]), f32(jcache["layers"][key]),
+                                   atol=tol, rtol=tol)
+
+
+def test_scatter_prefill_into_pages_matches_jax():
+    jm, jp, m, tp = bridged("float32")
+    toks = np.arange(1, 17, dtype=np.int32)[None]
+    _, jpre = jm.prefill(jp, tokens=jnp.asarray(toks), lengths=jnp.asarray([11]))
+    _, tpre = m.prefill(tp, torch.from_numpy(toks).long(), torch.tensor([11]))
+    jcache = jm.init_paged_cache(2, 8, 4, 4)
+    tcache = m.init_paged_cache(2, 8, 4, 4, device="cpu")
+    jout = jm.scatter_prefill(jcache, jpre, 1, 11, [6, 2, 5])
+    tout = m.scatter_prefill(tcache, tpre, 1, 11, [6, 2, 5])
+    for key in ("pool_k", "pool_v"):
+        np.testing.assert_allclose(f32(tout["layers"][key]), f32(jout["layers"][key]),
+                                   atol=1e-5, rtol=1e-5)
+    assert tout["layers"]["pool_k"] is tcache["layers"]["pool_k"]  # in place
