@@ -8,19 +8,25 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: both CUDA kernels compiled by nvcc from ``src/repro_torch/kernels/csrc``;
+2. build: the three CUDA kernels compiled by nvcc from
+   ``src/repro_torch/kernels/csrc``, one nvcc each, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the main path's shapes, in float32 and bf16, with its time, the
-   plain version's, a library call's where one exists, and the bound;
-4. parity: the paged engine on the card (kernels) and on the CPU (plain
-   versions) give identical tokens on the float32 smoke config;
-5. main path: qwen3-8b at full width (36 layers, d_model 4096, bf16, random
-   weights from --seed) serves 16 requests through Engine + run_closed_loop,
-   with the launch counts of both kernels checked against the run's
-   admissions and decode steps;
-6. profile: eight full decode steps timed on the host clock and eight more
-   traced with torch.profiler (device-busy time by kernel family, idle
-   share, launches per step).
+   card, at the main paths' shapes (attention at qwen3-8b's and
+   zamba2-1.2b's, the SSD scan at mamba2-370m's and zamba2-1.2b's), with
+   its time, the plain version's, a library call's where one exists, and
+   the bound;
+4. parity: the engine on the card (kernels) and on the CPU (plain
+   versions) give identical tokens on the float32 smoke configs of
+   qwen3-8b (paged), mamba2-370m (flat) and zamba2-1.2b (paged);
+5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers) and
+   zamba2-1.2b (38 Mamba2 layers, 19 shared-attention calls) at full width
+   and depth, bf16, random weights from --seed, each serving 16 requests
+   through Engine + run_closed_loop, with every kernel's launch count
+   checked against the run's admissions and decode steps;
+6. profiles: for qwen3-8b, eight full decode steps timed on the host clock
+   and eight more traced with torch.profiler (device-busy time by kernel
+   family, idle share, launches per step); for mamba2-370m, one admission
+   of a 1024-token prompt, timed and then traced the same way.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -48,14 +54,22 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
+# clock cycles the card spins before a timed run (about 0.1 s at the H100's clocks)
+SPIN_CYCLES = 200_000_000
+
 # phase 5's traffic: prompts of 128-1024 tokens drawn from --seed
 REQUESTS = 16
 NEW_TOKENS = 64
 
+# the SSD scan's float32 bound: tests/test_kernels.py's tolerance for the Pallas scan
+SCAN_TOL = 2e-3
+
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:83"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:89"
+SSM_REPLACES = "src/repro/kernels/ssm_scan.py:80"
 
 
 def fail(msg: str) -> None:
@@ -68,12 +82,16 @@ def phase(tag: str, **kv) -> None:
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls.
+    The card first spins for about 0.1 s, so the host has queued every
+    launch before the first one runs: the events then time the device's
+    work, not the host's launch overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -153,7 +171,8 @@ def check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch, max_len, page_siz
     nbytes = (2 * n_tok * KV * D + 2 * batch * H * D) * dbytes + pt.numel() * 4 + batch * 4
     flops = 4.0 * n_tok * H * D
     b_ms, b_by = bound(nbytes, flops, name)
-    phase("kernels", kernel="paged_decode_attention", dtype=name, B=batch, H=H, KV=KV,
+    phase("kernels", kernel="paged_decode_attention", config=cfg.name, dtype=name, B=batch,
+          H=H, KV=KV,
           D=D, page_size=page_size, lengths=f"{int(lengths.min())}..{int(lengths.max())}",
           tokens=n_tok, max_abs_err=f"{err:.3e}", ok=ok, zero_len_row_zero=zero_row,
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
@@ -205,7 +224,8 @@ def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window):
     flops = 4.0 * B * H * D * pairs
     nbytes = B * S * (2 * H + 2 * KV) * D * dbytes
     b_ms, b_by = bound(nbytes, flops, name)
-    phase("kernels", kernel="flash_attention", dtype=name, B=B, S=S, H=H, KV=KV, D=D,
+    phase("kernels", kernel="flash_attention", config=cfg.name, dtype=name, B=B, S=S, H=H,
+          KV=KV, D=D,
           window=window, max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{b_ms:.4f}", bound_by=b_by)
@@ -215,13 +235,62 @@ def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window):
                 library_ms=library_ms)
 
 
+def scan_work(B, S, H, P, N, L):
+    """(bytes, flops) the SSD scan needs: each input read once and each
+    output written once, in float32; the multiply-adds of C·Bᵀ (lower
+    triangle, once per chunk), of the intra-chunk term, of the entering
+    state's term and of the state update (the exponentials not counted)."""
+    tri = L * (L + 1) // 2
+    nc = S // L
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N + B * H * P * N)
+    flops = 2.0 * B * nc * tri * (N + H * P) + 2 * (2.0 * B * S * H * P * N)
+    return nbytes, flops
+
+
+def check_ssm(torch, ops, ssm_mod, rng, cfg, S):
+    """The SSD scan against its plain version at a model's shapes, batch 1,
+    inputs drawn as tests/test_kernels.py draws them."""
+    import torch.nn.functional as F
+
+    B, H, P, N, L = 1, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    gen = card_generator(torch, rng)
+    nbytes, flops = scan_work(B, S, H, P, N, L)
+    sets = []
+    for _ in range(min(8, max(1, math.ceil(150e6 / nbytes)))):
+        sets.append((
+            randn(torch, (B, S, H, P), torch.float32, gen),
+            F.softplus(randn(torch, (B, S, H), torch.float32, gen)),
+            -torch.exp(randn(torch, (H,), torch.float32, gen) * 0.5),
+            randn(torch, (B, S, N), torch.float32, gen),
+            randn(torch, (B, S, N), torch.float32, gen),
+        ))
+    y, fin = ops.ssm_scan(*sets[0], chunk=L)
+    want_y, want_fin = ssm_mod.ssm_scan_plain(*sets[0], L)
+    torch.cuda.synchronize()
+    err = max((y - want_y).abs().max().item(), (fin - want_fin).abs().max().item())
+    ok = (torch.allclose(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+          and torch.allclose(fin, want_fin, atol=SCAN_TOL, rtol=SCAN_TOL))
+    nx = rotating(sets)
+    ms = cuda_ms(torch, lambda: ops.ssm_scan(*nx(), chunk=L), 20)
+    plain_ms = cuda_ms(torch, lambda: ssm_mod.ssm_scan_plain(*nx(), L), 3)
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    phase("kernels", kernel="ssm_scan", config=cfg.name, dtype="float32", B=B, S=S, H=H, P=P,
+          N=N, chunk=L, max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=None, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          gflop=f"{flops / 1e9:.3f}", mb=f"{nbytes / 1e6:.2f}")
+    if not ok:
+        fail(f"ssm_scan {cfg.name} S={S}: max |err| {err:.3e} > {SCAN_TOL}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 # -- phase 4: the whole path on the card against the CPU --------------------------
 
 
-def staggered_tokens(Engine, Request, model, params, prompts, new_tokens):
-    """Admit three requests at staggered steps into a paged engine, as the
-    ragged oracle test does; returns every request's tokens."""
-    eng = Engine(model, params, batch=3, max_len=64, kv_backend="paged")
+def staggered_tokens(Engine, Request, model, params, prompts, new_tokens, backend):
+    """Admit three requests at staggered steps, as the ragged oracle test
+    does; returns every request's tokens."""
+    eng = Engine(model, params, batch=3, max_len=64, kv_backend=backend)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     eng.admit(reqs[0])
@@ -235,85 +304,20 @@ def staggered_tokens(Engine, Request, model, params, prompts, new_tokens):
     return [list(r.out_tokens) for r in reqs]
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+# -- phase 5: a main path at full width ---------------------------------------------
 
-    import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
-    try:
-        from repro_torch.configs import get_config, get_smoke_config
-        from repro_torch.kernels import _build, ops
-        from repro_torch.kernels import flash_attention as fa_mod
-        from repro_torch.kernels import paged_attention as paged_mod
-        from repro_torch.models import Model
-        from repro_torch.models.common import flatten, tree_to
-        from repro_torch.serving import Engine, Request, run_closed_loop
-    except ImportError as e:
-        fail(f"cannot import the port (run from the root of a checkout): {e}")
-    # 1. device ---------------------------------------------------------------
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    phase("device", name=json.dumps(kind), count=torch.cuda.device_count(),
-          torch=torch.__version__, cuda=torch.version.cuda,
-          tf32="off (matmul and cudnn)")
-    print(smi.stdout.strip(), flush=True)  # the card's name and power limit, as is
-
-    # 2. build ----------------------------------------------------------------
-    t0 = time.monotonic()
-    _build.build_all()
-    phase("build", seconds=f"{time.monotonic() - t0:.1f}", dir=_build.build_dir(),
-          arch="sm_90a")
-    for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
-
-    # 3. kernels against their plain versions, at the main path's shapes -------
-    rng = np.random.default_rng(args.seed)
-    cfg = get_config("qwen3-8b")
-    results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        r = check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch=8, max_len=2048,
-                        page_size=16)
-        results[("paged", dtype)] = r
-        for S in (16, 48, 512, 2048):
-            for window in (None, S // 3 + 1):
-                r = check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window)
-                results[("flash", dtype, S, window)] = r
-
-    # 4. whole-path parity: the card's kernels against the CPU's plain path ----
-    scfg = get_smoke_config("qwen3-8b", dtype="float32")
-    smodel = Model(scfg)
-    params_cpu = smodel.init(args.seed, device="cpu")
-    params_gpu = tree_to(params_cpu, "cuda")
-    prompts = [rng.integers(1, scfg.vocab_size, size=L).astype(np.int32) for L in (3, 5, 9)]
-    want = staggered_tokens(Engine, Request, smodel, params_cpu, prompts, 6)
-    ops.reset_launches()
-    got = staggered_tokens(Engine, Request, smodel, params_gpu, prompts, 6)
-    counts = ops.launches()
-    phase("parity", config=scfg.name, cpu_tokens=want, cuda_tokens=got,
-          launches=json.dumps(counts))
-    if got != want:
-        fail("the card's out_tokens differ from the CPU's")
-    if min(counts.values()) == 0:
-        fail(f"parity run did not launch every kernel: {counts}")
-
-    # 5. main path at full width -------------------------------------------------
-    cfg = get_config("qwen3-8b")
+def serve_main(torch, ops, Model, Engine, Request, run_closed_loop, flatten, cfg, seed,
+               expect_backend, expect_counts):
+    """Serve 16 requests of 128-1024 prompt tokens at full width; check the
+    launch counts against ``expect_counts(admissions, steps)``.  The
+    traffic comes from its own generator, seeded by ``seed`` and the
+    config's name, so it does not move when other phases draw more or
+    fewer numbers.  Returns (engine, counts, rng)."""
+    rng = np.random.default_rng([seed, *cfg.name.encode()])
     model = Model(cfg)
     t0 = time.monotonic()
-    params = model.init(args.seed, device="cuda")
+    params = model.init(seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in flatten(params).values())
     phase("init", config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
@@ -327,8 +331,8 @@ def main() -> None:
     del warm
 
     engine = Engine(model, params, batch=8, max_len=2048, kv_backend="auto", page_size=16)
-    if engine.kv_backend != "paged":
-        fail(f"auto backend chose {engine.kv_backend!r}, expected 'paged'")
+    if engine.kv_backend != expect_backend:
+        fail(f"{cfg.name}: auto backend chose {engine.kv_backend!r}, expected {expect_backend!r}")
     plens = rng.integers(128, 1025, size=REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=int(L)).astype(np.int32),
                     max_new_tokens=NEW_TOKENS) for i, L in enumerate(plens)]
@@ -356,14 +360,15 @@ def main() -> None:
     engine._prefill, engine._decode = prefill, decode
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    stats = run_closed_loop(engine, reqs, seed=args.seed)
+    stats = run_closed_loop(engine, reqs, seed=seed)
     torch.cuda.synchronize()
     counts = ops.launches()
+    engine._prefill, engine._decode = orig_prefill, orig_decode
     bad = int(probe["bad"].item())
-    expect = {"flash_attention": probe["prefill"] * cfg.num_layers,
-              "paged_decode_attention": engine.steps * cfg.num_layers}
+    expect = expect_counts(probe["prefill"], engine.steps)
     pct = lambda xs, p: float(np.percentile(xs, p)) if xs else float("nan")  # noqa: E731
-    phase("serve", served=stats.served, requests=len(reqs), tokens=stats.tokens,
+    phase("serve", config=cfg.name, backend=engine.kv_backend, served=stats.served,
+          requests=len(reqs), tokens=stats.tokens,
           prompt_tokens=int(plens.sum()), admissions=probe["prefill"], steps=engine.steps,
           preempted=stats.preempted, wall_s=f"{stats.wall_s:.3f}",
           throughput_rps=f"{stats.throughput:.3f}",
@@ -374,23 +379,142 @@ def main() -> None:
           peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
           launches=json.dumps(counts), expected=json.dumps(expect), nonfinite_logits=bad)
     if stats.served != len(reqs) or not all(r.done for r in reqs):
-        fail(f"served {stats.served} of {len(reqs)} requests")
+        fail(f"{cfg.name}: served {stats.served} of {len(reqs)} requests")
     if bad:
-        fail(f"{bad} non-finite logits on the main path")
+        fail(f"{cfg.name}: {bad} non-finite logits on the main path")
     if counts != expect:
-        fail(f"launch counts {counts} != expected {expect}")
+        fail(f"{cfg.name}: launch counts {counts} != expected {expect}")
+    return engine, counts, rng
 
-    # 6. where the decode step's time goes (after the counts were read)
-    profile_decode(torch, engine, cfg, rng, Request)
 
-    main_flash = results[("flash", torch.bfloat16, 512, None)]
-    main_paged = results[("paged", torch.bfloat16)]
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    try:
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import flash_attention as fa_mod
+        from repro_torch.kernels import paged_attention as paged_mod
+        from repro_torch.kernels import ssm_scan as ssm_mod
+        from repro_torch.models import Model
+        from repro_torch.models.common import flatten, tree_to
+        from repro_torch.serving import Engine, Request, run_closed_loop
+    except ImportError as e:
+        fail(f"cannot import the port (run from the root of a checkout): {e}")
+    # 1. device ---------------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase("device", name=json.dumps(kind), count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          tf32="off (matmul and cudnn)")
+    print(smi.stdout.strip(), flush=True)  # the card's name and power limit, as is
+
+    # 2. build ----------------------------------------------------------------
+    t0 = time.monotonic()
+    _build.build_all()
+    phase("build", seconds=f"{time.monotonic() - t0:.1f}", dir=_build.build_dir(),
+          arch="sm_90a", kernels=",".join(_build.KERNELS))
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    # 3. kernels against their plain versions, at the main paths' shapes -------
+    rng = np.random.default_rng(args.seed)
+    qwen, mamba, zamba = (get_config(a) for a in ("qwen3-8b", "mamba2-370m", "zamba2-1.2b"))
+    results = {}
+    for S in (128, 1024):  # prompt buckets: one chunk, and the longest prompt
+        for cfg in (mamba, zamba):
+            results[("ssm", cfg.name, S)] = check_ssm(torch, ops, ssm_mod, rng, cfg, S)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_paged(torch, ops, paged_mod, dtype, rng, qwen, batch=8, max_len=2048,
+                        page_size=16)
+        results[("paged", dtype)] = r
+        for S in (16, 48, 512, 2048):
+            for window in (None, S // 3 + 1):
+                r = check_flash(torch, ops, fa_mod, dtype, rng, qwen, S, window)
+                results[("flash", dtype, S, window)] = r
+        # zamba2's shared attention: head dim 64, one query head per kv head
+        check_paged(torch, ops, paged_mod, dtype, rng, zamba, batch=8, max_len=2048,
+                    page_size=16)
+        for S in (128, 1024):
+            check_flash(torch, ops, fa_mod, dtype, rng, zamba, S, None)
+
+    # 4. whole-path parity: the card's kernels against the CPU's plain path ----
+    for arch, backend in (("qwen3-8b", "paged"), ("mamba2-370m", "flat"),
+                          ("zamba2-1.2b", "paged")):
+        scfg = get_smoke_config(arch, dtype="float32")
+        smodel = Model(scfg)
+        params_cpu = smodel.init(args.seed, device="cpu")
+        params_gpu = tree_to(params_cpu, "cuda")
+        prompts = [rng.integers(1, scfg.vocab_size, size=L).astype(np.int32)
+                   for L in (3, 5, 9)]
+        want = staggered_tokens(Engine, Request, smodel, params_cpu, prompts, 6, backend)
+        ops.reset_launches()
+        got = staggered_tokens(Engine, Request, smodel, params_gpu, prompts, 6, backend)
+        counts = ops.launches()
+        uses = {"flash_attention": scfg.arch_type != "ssm",
+                "paged_decode_attention": backend == "paged",
+                "ssm_scan": scfg.arch_type != "dense"}
+        phase("parity", config=scfg.name, backend=backend, cpu_tokens=want, cuda_tokens=got,
+              launches=json.dumps(counts))
+        if got != want:
+            fail(f"{scfg.name}: the card's out_tokens differ from the CPU's")
+        if any(counts[k] == 0 for k, used in uses.items() if used):
+            fail(f"{scfg.name}: parity run did not launch every kernel it uses: {counts}")
+
+    # 5. main paths at full width, each followed by its profile (6) -----------------
+    serve = (torch, ops, Model, Engine, Request, run_closed_loop, flatten)
+    engine, qwen_counts, rng = serve_main(
+        *serve, qwen, args.seed, "paged",
+        lambda admits, steps: {"flash_attention": admits * qwen.num_layers,
+                               "paged_decode_attention": steps * qwen.num_layers,
+                               "ssm_scan": 0})
+    profile_decode(torch, engine, qwen, rng, Request)
+    del engine
+    torch.cuda.empty_cache()
+
+    engine, mamba_counts, rng = serve_main(
+        *serve, mamba, args.seed, "flat",
+        lambda admits, steps: {"flash_attention": 0, "paged_decode_attention": 0,
+                               "ssm_scan": admits * mamba.num_layers})
+    profile_prefill(torch, engine, mamba, rng, Request)
+    del engine
+    torch.cuda.empty_cache()
+
+    n_attn = zamba.num_layers // zamba.shared_attn_every
+    engine, zamba_counts, _ = serve_main(
+        *serve, zamba, args.seed, "paged",
+        lambda admits, steps: {"flash_attention": admits * n_attn,
+                               "paged_decode_attention": steps * n_attn,
+                               "ssm_scan": admits * zamba.num_layers})
+    del engine
+    torch.cuda.empty_cache()
+
+    # launches: the sum over the three main-path runs (each counted from 0)
+    launches = {k: qwen_counts[k] + mamba_counts[k] + zamba_counts[k] for k in qwen_counts}
     summary = {"kernels": [
         dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
-             replaces=FLASH_REPLACES, launches=counts["flash_attention"], **main_flash),
+             replaces=FLASH_REPLACES, launches=launches["flash_attention"],
+             **results[("flash", torch.bfloat16, 512, None)]),
         dict(name="paged_decode_attention", route="cuda", source=PAGED_SOURCE,
-             replaces=PAGED_REPLACES, launches=counts["paged_decode_attention"],
-             **main_paged),
+             replaces=PAGED_REPLACES, launches=launches["paged_decode_attention"],
+             **results[("paged", torch.bfloat16)]),
+        dict(name="ssm_scan", route="cuda", source=SSM_SOURCE, replaces=SSM_REPLACES,
+             launches=launches["ssm_scan"], **results[("ssm", mamba.name, 1024)]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -398,12 +522,31 @@ def main() -> None:
           flush=True)
 
 
+def kernel_families(events, families):
+    """Device time (us) of the profiler's kernel rows by family:
+    ``families`` maps a family to name fragments; the rest is "other".
+    Returns (times, kernel count)."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]  # not the ops
+    out = {f: 0.0 for f in families}
+    out["other"] = 0.0
+    for e in kernels:
+        name = e.key.lower()
+        fam = next((f for f, frags in families.items() if any(w in name for w in frags)),
+                   "other")
+        out[fam] += e.self_device_time_total
+    return out, sum(e.count for e in kernels)
+
+
+MATMUL_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma")
+
+
 def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
     """Fill every slot, time ``steps`` decode steps on the host clock, then
     trace as many more with torch.profiler: device time by kernel family,
     the device's idle share of the untraced step time, and the top rows of
     the profiler's table."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(engine.batch):
@@ -422,26 +565,47 @@ def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
             engine.step()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]  # not the ops
-    families = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in kernels:
-        us = e.self_device_time_total
-        name = e.key.lower()
-        if "paged_decode_kernel" in name:
-            families["paged_attention"] += us
-        elif any(w in name for w in ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma")):
-            families["matmul"] += us
-        else:
-            families["other"] += us
+    families, n_kernels = kernel_families(
+        events, {"paged_attention": ("paged_decode_kernel",), "matmul": MATMUL_NAMES})
     busy_ms = sum(families.values()) / steps / 1e3
-    phase("profile", steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
+    phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",
           device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.3f}",
           **{f"{k}_ms_per_step": f"{v / steps / 1e3:.3f}" for k, v in families.items()},
-          kernels_per_step=sum(e.count for e in kernels) // steps)
+          kernels_per_step=n_kernels // steps)
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     while engine.num_live:
         engine.step()
+
+
+def profile_prefill(torch, engine, cfg, rng, Request, L: int = 1024) -> None:
+    """One admission of an ``L``-token prompt timed on the host clock, then
+    another traced with torch.profiler: device time by kernel family, the
+    device's idle share of the untraced admission, kernels per prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def admit(rid):
+        prompt = rng.integers(1, cfg.vocab_size, size=L).astype(np.int32)
+        engine.admit(Request(rid=rid, prompt=prompt, max_new_tokens=1))  # done at admission
+        torch.cuda.synchronize()
+
+    admit(20_000)  # warm: this prompt length's allocations
+    t0 = time.monotonic()
+    admit(20_001)
+    admit_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        admit(20_002)
+    events = prof.key_averages()
+    families, n_kernels = kernel_families(
+        events, {"ssm_scan": ("ssd_scan_kernel", "chunk_cb_kernel"), "matmul": MATMUL_NAMES})
+    busy_ms = sum(families.values()) / 1e3
+    phase("profile", config=cfg.name, prefill_tokens=L, admit_ms=f"{admit_ms:.3f}",
+          device_busy_ms=f"{busy_ms:.3f}",
+          device_idle_share=f"{max(0.0, 1 - busy_ms / admit_ms):.3f}",
+          **{f"{k}_ms": f"{v / 1e3:.3f}" for k, v in families.items()},
+          kernels_per_prefill=n_kernels)
+    print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
+    engine.step()  # hand back the finished requests
 
 
 if __name__ == "__main__":

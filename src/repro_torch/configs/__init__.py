@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
 The port's own copy of the JAX package's registry, holding the
-architectures the port serves so far (the dense GQA path: qwen3-8b).  Each
+architectures the port serves so far: qwen3-8b (dense GQA), mamba2-370m
+(pure SSM) and zamba2-1.2b (Mamba2 with a shared attention block).  Each
 module cites its source model card; ``smoke`` variants are reduced
 same-family configs used by the CPU tests.
 """
@@ -16,6 +17,8 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -5,6 +5,7 @@ PyTorch version:
   * ``flash_attention``  — causal prefill attention (``csrc/flash_attention.cu``)
   * ``paged_attention``  — one-token decode over a paged KV pool
     (``csrc/paged_attention.cu``)
+  * ``ssm_scan``         — the Mamba2 SSD chunked scan (``csrc/ssm_scan.cu``)
 
 :mod:`repro_torch.kernels.ops` holds the public wrappers; the kernels are
 compiled by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`), never

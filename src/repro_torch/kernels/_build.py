@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_attention", "paged_attention")
+KERNELS = ("flash_attention", "paged_attention", "ssm_scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -121,6 +121,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "paged_attention":
         fn = lib.repro_paged_decode_attention
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i64, i64, f, p]
+    elif name == "ssm_scan":
+        fn = lib.repro_ssm_scan
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i64, p]
     else:
         raise ValueError(f"unknown kernel {name!r}")
     fn.restype = ctypes.c_int

@@ -13,12 +13,13 @@ the kernels: set the counts to 0 with :func:`reset_launches`, run, read.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ssm_scan as _ssm
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -69,10 +70,33 @@ def paged_decode_attention(
     return out[:, None]
 
 
+def ssm_scan(
+    x: torch.Tensor,  # (B, S, H, P) float32
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    B_: torch.Tensor,  # (B, S, N)
+    C_: torch.Tensor,  # (B, S, N)
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan; returns y (B, S, H, P) and the final state
+    (B, H, P, N), both float32.  A sequence shorter than ``chunk`` is one
+    chunk, as in the Pallas wrapper; otherwise ``S % chunk`` must be 0."""
+    chunk = min(chunk, x.shape[1])
+    if not _route(x, "ssm_scan"):
+        return _ssm.ssm_scan_plain(x, dt, A, B_, C_, chunk)
+    Bb, S, H, P = x.shape
+    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    final = torch.empty((Bb, H, P, B_.shape[-1]), dtype=torch.float32, device=x.device)
+    _ssm.launch(x, dt, A, B_, C_, chunk, y, final)
+    ssm_scan.launches += 1
+    return y, final
+
+
 flash_attention.launches = 0
 paged_decode_attention.launches = 0
+ssm_scan.launches = 0
 
-WRAPPERS = (flash_attention, paged_decode_attention)
+WRAPPERS = (flash_attention, paged_decode_attention, ssm_scan)
 
 
 def reset_launches() -> None:

@@ -11,6 +11,10 @@ Weights are random, from ``--seed``.
       --requests 16 --batch 4 --new-tokens 8             # smoke config
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
       --batch 8 --prompt-len 512 --new-tokens 64 --max-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --device cpu                                       # SSM smoke config
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --device cpu                                       # hybrid smoke config
 """
 
 from __future__ import annotations

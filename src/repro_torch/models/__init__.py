@@ -1,4 +1,5 @@
-"""PyTorch model code: the dense GQA decoder and its building blocks."""
+"""PyTorch model code: the decoder models (dense GQA, Mamba2 SSM, Zamba2
+hybrid) and their building blocks."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model

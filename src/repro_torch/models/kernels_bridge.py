@@ -1,12 +1,16 @@
-"""Bridge between model code and the attention compute layer.
+"""Bridge between model code and the kernel layer.
 
-Models call :func:`causal_attention` / :func:`decode_attention`.
-``causal_attention`` always goes through :func:`repro_torch.kernels.ops.flash_attention`:
+Models call :func:`causal_attention` / :func:`decode_attention` /
+:func:`ssm_scan`.  ``causal_attention`` always goes through :func:`repro_torch.kernels.ops.flash_attention`:
 the CUDA kernel for tensors on a card, at any sequence length (the JAX
 bridge takes its kernel only when ``S % 128 == 0``; this kernel masks the
 ragged tail, so the engine's 16-token prefill buckets use it too), and the
 kernel's plain version on the CPU.  ``decode_attention`` is the plain flat
-decode the flat KV backend uses, as in the JAX package.
+decode the flat KV backend uses, as in the JAX package.  ``ssm_scan``
+always goes through :func:`repro_torch.kernels.ops.ssm_scan`, so SSM and
+hybrid prefill run the scan kernel on a card; the JAX package's
+``ssm_forward``/``ssm_prefill`` call their jnp ``ssd_chunked`` directly
+and never reach their Pallas scan.
 
 GQA grouping (H = KV·G) is handled here so both backends see the same
 contract.
@@ -15,7 +19,7 @@ contract.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,3 +60,15 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return o.reshape(B, 1, H, v.shape[-1])
+
+
+def ssm_scan(
+    x: torch.Tensor,  # (B, S, H, P) float32
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,  # (H,)
+    B_: torch.Tensor,  # (B, S, N)
+    C_: torch.Tensor,  # (B, S, N)
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD chunked scan; returns (y (B,S,H,P), final state (B,H,P,N))."""
+    return ops.ssm_scan(x, dt, A, B_, C_, chunk)

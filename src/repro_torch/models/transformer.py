@@ -1,24 +1,36 @@
-"""Config-driven decoder model: the dense GQA path.
+"""Config-driven decoder models: dense GQA, Mamba2 SSM and the Zamba2 hybrid.
 
-The port of the dense part of the JAX package's ``models/transformer.py``:
-``init``, ``embed``, ``logits``, ``prefill``, ``init_cache`` /
+The port of the JAX package's ``models/transformer.py`` for three
+architecture families:
+
+  * dense  : a stack of (GQA attention + SwiGLU) blocks;
+  * ssm    : a stack of Mamba2 blocks;
+  * hybrid : superblocks of ``shared_attn_every`` Mamba2 sublayers followed
+             by one call of a single weight-shared GQA block (one weight
+             set, ``shared_attn/...``, but one KV cache per superblock; no
+             MLP).
+
+Methods: ``init``, ``embed``, ``logits``, ``prefill``, ``init_cache`` /
 ``decode_step`` (flat KV), ``init_paged_cache`` / ``decode_step_paged``
-(paged KV) and ``scatter_prefill``.  Parameters are a plain nested dict
-with the JAX key tree; per-layer parameters are stacked along a leading
-layer axis, and the JAX ``lax.scan`` over that axis becomes a Python loop.
+(paged KV; dense and hybrid) and ``scatter_prefill``.  Parameters are a
+plain nested dict with the JAX key tree; per-layer (or per-superblock)
+parameters are stacked along a leading axis, and the JAX ``lax.scan`` over
+that axis becomes a Python loop.
 
-Caches are updated in place (see :mod:`repro_torch.models.attention`);
-the methods still return them, as the reference's do.
+Caches are updated in place (see :mod:`repro_torch.models.attention` and
+:mod:`repro_torch.models.ssm`); the methods still return them, as the
+reference's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     DTYPES, ParamSpec, init_params, resolve_device, rmsnorm,
 )
@@ -34,35 +46,86 @@ def _layer(tree: Params, i: int) -> Params:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _stack(trees: List[Params]) -> Params:
+    """Per-layer trees of tensors -> one tree stacked along a new axis 0."""
+    return {
+        k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+        else torch.stack([t[k] for t in trees])
+        for k, v in trees[0].items()
+    }
+
+
+def _zeros_stacked(template: Params, n: int) -> Params:
+    """Zeros shaped like ``template`` with a leading axis of ``n``."""
+    return {
+        k: _zeros_stacked(v, n) if isinstance(v, dict)
+        else torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+        for k, v in template.items()
+    }
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.arch_type != "dense" or cfg.attention_kind != "gqa" or cfg.modality != "text":
+        served = cfg.modality == "text" and (
+            (cfg.arch_type in ("dense", "hybrid") and cfg.attention_kind == "gqa")
+            or (cfg.arch_type == "ssm" and cfg.attention_kind == "none")
+        )
+        if not served:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense GQA text models only "
-                f"(arch_type={cfg.arch_type!r}, attention_kind={cfg.attention_kind!r})"
+                f"{cfg.name}: the port serves dense GQA, SSM and hybrid text models only "
+                f"(arch_type={cfg.arch_type!r}, attention_kind={cfg.attention_kind!r}, "
+                f"modality={cfg.modality!r})"
             )
+        if cfg.arch_type == "hybrid" and (
+            cfg.shared_attn_every < 1 or cfg.num_layers % cfg.shared_attn_every
+        ):
+            raise ValueError(
+                f"{cfg.name}: hybrid depth {cfg.num_layers} must be a multiple of "
+                f"shared_attn_every={cfg.shared_attn_every}"
+            )
+
+    @property
+    def depth(self) -> int:
+        """Length of the stacked ``layers`` axis: layers, or superblocks."""
+        cfg = self.cfg
+        if cfg.arch_type == "hybrid":
+            return cfg.num_layers // cfg.shared_attn_every
+        return cfg.num_layers
 
     # ------------------------------------------------------------------ init --
     def param_specs(self) -> Dict[str, ParamSpec]:
         """Flat ``/``-joined key path -> (shape, init, scale): the key tree
         and shapes of the JAX ``Model.init``."""
         cfg = self.cfg
+        d = cfg.d_model
         specs: Dict[str, ParamSpec] = {
-            "embed": ((cfg.padded_vocab, cfg.d_model), "normal", 0.02),
+            "embed": ((cfg.padded_vocab, d), "normal", 0.02),
         }
         if not cfg.tie_embeddings:
-            specs["head"] = ((cfg.d_model, cfg.padded_vocab), "normal", None)
-        specs["final_norm"] = ((cfg.d_model,), "ones", None)
-        block: Dict[str, ParamSpec] = {"ln1": ((cfg.d_model,), "ones", None)}
-        block.update({f"attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
-        block["ln2"] = ((cfg.d_model,), "ones", None)
-        block.update({f"mlp/{k}": s for k, s in mlp_specs(cfg).items()})
+            specs["head"] = ((d, cfg.padded_vocab), "normal", None)
+        specs["final_norm"] = ((d,), "ones", None)
+        ln: ParamSpec = ((d,), "ones", None)
+        block: Dict[str, ParamSpec] = {}
+        if cfg.arch_type == "dense":
+            block["ln1"] = ln
+            block.update({f"attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
+            block["ln2"] = ln
+            block.update({f"mlp/{k}": s for k, s in mlp_specs(cfg).items()})
+        elif cfg.arch_type == "ssm":
+            block["ln"] = ln
+            block.update(ssm_mod.ssm_specs(cfg))
+        else:  # hybrid
+            specs["shared_attn/ln"] = ln
+            specs.update({f"shared_attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
+            for i in range(cfg.shared_attn_every):
+                block[f"mamba_{i}/ln"] = ln
+                block.update({f"mamba_{i}/{k}": s for k, s in ssm_mod.ssm_specs(cfg).items()})
         for k, (shape, init, scale) in block.items():
-            specs[f"layers/{k}"] = ((cfg.num_layers,) + shape, init, scale)
+            specs[f"layers/{k}"] = ((self.depth,) + shape, init, scale)
         return specs
 
     def init(self, seed: int = 0, device: Device = "cuda") -> Params:
@@ -99,21 +162,38 @@ class Model:
     ) -> Tuple[torch.Tensor, Params]:
         """Full-sequence serving prefill: last-token logits (at ``lengths-1``
         for right-padded rows) and the decode cache of every layer, stacked
-        along a leading layer axis.  Cache rows past a row's length hold
-        padding that the decode-side validity mask never reads."""
+        along a leading layer axis.  SSM states are exact under padding
+        (dt-masked identity steps); attention cache rows past a row's length
+        hold padding that the decode-side validity mask never reads."""
         cfg = self.cfg
         x = self.embed(params, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
+        eps = cfg.norm_eps
+        caches = []
+        for i in range(self.depth):
             lp = _layer(params["layers"], i)
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            a, c = attn.gqa_prefill(lp["attn"], cfg, h, positions)
-            x = self._mlp_residual(lp, x + a)
-            ks.append(c["k"])
-            vs.append(c["v"])
-        cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+            if cfg.arch_type == "dense":
+                a, c = attn.gqa_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
+                x = self._mlp_residual(lp, x + a)
+            elif cfg.arch_type == "ssm":
+                y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
+                x = x + y
+            else:  # hybrid superblock: Mamba2 sublayers, then the shared attention
+                c = {}
+                for j in range(cfg.shared_attn_every):
+                    mp = lp[f"mamba_{j}"]
+                    y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(
+                        mp, cfg, rmsnorm(x, mp["ln"], eps), lengths
+                    )
+                    x = x + y
+                shared = params["shared_attn"]
+                a, c["attn"] = attn.gqa_prefill(
+                    shared, cfg, rmsnorm(x, shared["ln"], eps), positions
+                )
+                x = x + a
+            caches.append(c)
+        cache = {"layers": _stack(caches)}
         if lengths is None:
             last = x[:, -1:]
         else:
@@ -121,12 +201,29 @@ class Model:
         return self.logits(params, last), cache
 
     # ----------------------------------------------------------------- decode --
+    def _layer_cache(self, batch: int, device: torch.device, attn_cache) -> Params:
+        """One layer's (or superblock's) decode cache; ``attn_cache`` makes
+        the attention part (flat or paged)."""
+        cfg = self.cfg
+        dtype = DTYPES[cfg.dtype]
+        if cfg.arch_type == "dense":
+            return attn_cache()
+        if cfg.arch_type == "ssm":
+            return ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
+        c = {
+            f"mamba_{j}": ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
+            for j in range(cfg.shared_attn_every)
+        }
+        c["attn"] = attn_cache()
+        return c
+
     def init_cache(self, batch: int, max_len: int, device: Device = "cuda") -> Params:
         cfg = self.cfg
         dev = resolve_device(device)
-        c = attn.gqa_init_cache(cfg, batch, max_len, DTYPES[cfg.dtype], dev)
-        L = cfg.num_layers
-        return {"layers": {k: v[None].repeat(L, *([1] * v.dim())) for k, v in c.items()}}
+        one = self._layer_cache(
+            batch, dev, lambda: attn.gqa_init_cache(cfg, batch, max_len, DTYPES[cfg.dtype], dev)
+        )
+        return {"layers": _zeros_stacked(one, self.depth)}
 
     def decode_step(
         self, params: Params, cache: Params, token: torch.Tensor, pos
@@ -154,22 +251,20 @@ class Model:
         device: Device = "cuda",
     ) -> Params:
         """Per-layer page pools (one page id addresses a slab across all
-        layers) plus the batch's page tables, which the engine refreshes from
-        its :class:`~repro_torch.serving.paged_cache.PagePool` before each
-        step."""
+        attention layers), the hybrid's SSM states beside them, plus the
+        batch's page tables, which the engine refreshes from its
+        :class:`~repro_torch.serving.paged_cache.PagePool` before each step."""
         cfg = self.cfg
         if not self.supports_paged_kv:
             raise ValueError(f"paged KV unsupported for {cfg.name}")
         dev = resolve_device(device)
-        KV, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
-        shape = (L, num_pages, page_size, KV, hd)
-        dtype = DTYPES[cfg.dtype]
+        one = self._layer_cache(
+            batch, dev,
+            lambda: attn.gqa_init_paged_cache(cfg, num_pages, page_size, DTYPES[cfg.dtype], dev),
+        )
         return {
             "page_tables": torch.zeros((batch, max_pages), dtype=torch.int32, device=dev),
-            "layers": {
-                "pool_k": torch.zeros(shape, dtype=dtype, device=dev),
-                "pool_v": torch.zeros(shape, dtype=dtype, device=dev),
-            },
+            "layers": _zeros_stacked(one, self.depth),
         }
 
     def decode_step_paged(
@@ -181,23 +276,37 @@ class Model:
 
     def _decode(self, params, cache, token, pos, paged: bool):
         cfg = self.cfg
+        eps = cfg.norm_eps
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device).expand(B)
         # live-slot indices, found once per step: finding them waits for the
-        # device, which every layer doing it would turn into 2*L waits
+        # device, which every layer doing it would turn into one wait a layer
         rows = attn.live_rows(pos >= 0)
+
+        def attend(p, h, lc):
+            if paged:
+                return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos, rows)[0]
+            return attn.gqa_decode(p, cfg, h, lc, pos, rows)[0]
+
         x = self.embed(params, token)
-        for i in range(cfg.num_layers):
+        for i in range(self.depth):
             lp = _layer(params["layers"], i)
             lc = _layer(cache["layers"], i)
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            if paged:
-                a, _ = attn.gqa_decode_paged(
-                    lp["attn"], cfg, h, lc, cache["page_tables"], pos, rows
-                )
-            else:
-                a, _ = attn.gqa_decode(lp["attn"], cfg, h, lc, pos, rows)
-            x = self._mlp_residual(lp, x + a)
+            if cfg.arch_type == "dense":
+                a = attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc)
+                x = self._mlp_residual(lp, x + a)
+            elif cfg.arch_type == "ssm":
+                y, _ = ssm_mod.ssm_decode(lp, cfg, rmsnorm(x, lp["ln"], eps), lc, rows)
+                x = x + y
+            else:  # hybrid superblock
+                for j in range(cfg.shared_attn_every):
+                    mp = lp[f"mamba_{j}"]
+                    y, _ = ssm_mod.ssm_decode(
+                        mp, cfg, rmsnorm(x, mp["ln"], eps), lc[f"mamba_{j}"], rows
+                    )
+                    x = x + y
+                shared = params["shared_attn"]
+                x = x + attend(shared, rmsnorm(x, shared["ln"], eps), lc["attn"])
         return self.logits(params, x), cache
 
     # ------------------------------------------------------ prefill scatter --
@@ -213,7 +322,8 @@ class Model:
         engine batch cache (flat :meth:`init_cache` layout, or paged
         :meth:`init_paged_cache` layout when ``page_ids`` — the slot's pages,
         covering >= ``length`` tokens — is given), in place.  ``length`` is
-        the true prompt length; padding rows past it are never copied."""
+        the true prompt length; padding rows past it are never copied, and
+        fixed-shape SSM leaves (conv tail, state) are copied whole."""
         return _scatter_node(cache, prefill_cache, slot, length, False, page_ids)
 
 

@@ -19,7 +19,8 @@ Two KV backends:
   folded into the prompt.
 * ``flat`` — the dense per-slot ``(B, max_len, ...)`` cache with plain
   PyTorch decode attention, kept as the reference the tests hold the paged
-  path against.
+  path against.  A pure SSM model has no growing KV to page: it always
+  takes this backend (its per-slot conv tail and state), ``paged`` included.
 
 The engine runs on the device its params live on.  Sampling happens on the
 host and is identical to the reference: ``temperature == 0`` is argmax,
@@ -41,9 +42,10 @@ from repro_torch.obs.metrics import percentile_summary
 from repro_torch.serving.paged_cache import OutOfPages, PagePool, page_bytes
 
 
-# Prompts are right-padded to a multiple of this (exact: masked-out attention
-# rows, true-last-token logits), the reference's bucket for dense models;
-# its SSM/MoE buckets arrive with those models.
+# Prompts of dense models are right-padded to a multiple of this (exact:
+# masked-out attention rows, true-last-token logits), the reference's
+# bucket; SSM and hybrid models pad to ``cfg.ssm_chunk`` instead, which
+# the chunked scan needs (dt-masked padding keeps their states exact).
 PREFILL_BUCKET = 16
 
 
@@ -119,10 +121,13 @@ class Engine:
         if kv_backend == "auto":
             backend = "paged" if model.supports_paged_kv else "flat"
         elif kv_backend == "paged" and not model.supports_paged_kv:
-            raise ValueError(
-                f"paged KV unsupported for {cfg.name}: "
-                f"attention_kind={cfg.attention_kind!r}"
-            )
+            if cfg.arch_type == "ssm":
+                backend = "flat"  # no growing KV to page: the state cache as is
+            else:
+                raise ValueError(
+                    f"paged KV unsupported for {cfg.name}: "
+                    f"attention_kind={cfg.attention_kind!r}"
+                )
         elif kv_backend in ("paged", "flat"):
             backend = kv_backend
         else:
@@ -152,6 +157,7 @@ class Engine:
             self.cache = model.init_cache(batch, max_len, device=self.device)
             self._decode = model.decode_step
         self._prefill = lambda p, toks, lens: model.prefill(p, toks, lengths=lens)
+        self.pad_to = cfg.ssm_chunk if cfg.arch_type in ("ssm", "hybrid") else PREFILL_BUCKET
 
     # -- introspection --------------------------------------------------------
     def has_free_slot(self) -> bool:
@@ -198,7 +204,7 @@ class Engine:
                 self.pool.release(req.rid)
                 raise
         try:
-            pad = -(-L // PREFILL_BUCKET) * PREFILL_BUCKET
+            pad = -(-L // self.pad_to) * self.pad_to
             toks = np.zeros((1, pad), np.int32)
             toks[0, :L] = ctx
             logits, pcache = self._prefill(

@@ -29,26 +29,28 @@ from repro_torch.serving import (  # noqa: E402
 )
 
 ARCH = "qwen3-8b"
+ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b")
 MAX_LEN = 64
 NEW_TOKENS = 6
 _CACHE = {}
 
 
-def port_model():
+def port_model(arch=ARCH):
     """The port's smoke model with its own seeded weights (bf16, as served)."""
-    if "port" not in _CACHE:
-        m = Model(get_smoke_config(ARCH))
-        _CACHE["port"] = (m, m.init(0, device="cpu"))
-    return _CACHE["port"]
+    if ("port", arch) not in _CACHE:
+        m = Model(get_smoke_config(arch))
+        _CACHE[("port", arch)] = (m, m.init(0, device="cpu"))
+    return _CACHE[("port", arch)]
 
 
-def bridged_fp32():
-    if "bridged" not in _CACHE:
-        jm = JaxModel(jax_smoke(ARCH, dtype="float32"), remat=False)
+def bridged_fp32(arch=ARCH):
+    if ("bridged", arch) not in _CACHE:
+        jm = JaxModel(jax_smoke(arch, dtype="float32"), remat=False)
         jp, _ = jm.init(jax.random.PRNGKey(0))
-        m = Model(get_smoke_config(ARCH, dtype="float32"))
-        _CACHE["bridged"] = (jm, jp, m, params_from_jax(_flatten(jp), m.cfg, device="cpu"))
-    return _CACHE["bridged"]
+        m = Model(get_smoke_config(arch, dtype="float32"))
+        _CACHE[("bridged", arch)] = (
+            jm, jp, m, params_from_jax(_flatten(jp), m.cfg, device="cpu"))
+    return _CACHE[("bridged", arch)]
 
 
 def make_prompts(cfg, lengths, seed=7):
@@ -64,11 +66,13 @@ def solo_tokens(m, params, prompt, new_tokens=NEW_TOKENS):
     return list(req.out_tokens)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", ["flat", "paged"])
-def test_ragged_oracle_staggered_admits(backend):
+def test_ragged_oracle_staggered_admits(backend, arch):
     """Three requests of different prompt lengths, admitted at staggered
-    steps: every request's tokens equal its solo decode."""
-    m, params = port_model()
+    steps: every request's tokens equal its solo decode ("paged" gives the
+    flat state cache for the pure SSM model, as in the reference)."""
+    m, params = port_model(arch)
     prompts = make_prompts(m.cfg, (3, 5, 9))
     solo = [solo_tokens(m, params, p) for p in prompts]
     eng = Engine(m, params, batch=3, max_len=MAX_LEN, kv_backend=backend)
@@ -85,11 +89,12 @@ def test_ragged_oracle_staggered_admits(backend):
         assert req.out_tokens == want, (req.rid, req.out_tokens, want)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", ["flat", "paged"])
-def test_ragged_oracle_slot_reuse(backend):
+def test_ragged_oracle_slot_reuse(backend, arch):
     """More requests than slots: freed slots are re-admitted at new offsets
     and the oracle still holds for every request."""
-    m, params = port_model()
+    m, params = port_model(arch)
     prompts = make_prompts(m.cfg, (4, 7, 3, 6, 5), seed=11)
     solo = [solo_tokens(m, params, p) for p in prompts]
     eng = Engine(m, params, batch=2, max_len=MAX_LEN, kv_backend=backend)
@@ -100,17 +105,19 @@ def test_ragged_oracle_slot_reuse(backend):
         assert req.out_tokens == want, (req.rid, req.out_tokens, want)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", ["flat", "paged"])
-def test_tokens_equal_jax_engine_on_bridged_weights(backend):
+def test_tokens_equal_jax_engine_on_bridged_weights(backend, arch):
     """Token for token, the port's engine and the JAX engine agree on the
-    same float32 weights, through slot reuse and a 16-token bucket boundary."""
-    jm, jp, m, tp = bridged_fp32()
+    same float32 weights, through slot reuse and a 16-token bucket (or
+    16-step SSM chunk) boundary."""
+    jm, jp, m, tp = bridged_fp32(arch)
     prompts = make_prompts(m.cfg, (4, 17, 3, 9, 12), seed=5)
     jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
     treqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
     jax_run_closed_loop(JaxEngine(jm, jp, batch=2, max_len=MAX_LEN, kv_backend=backend), jreqs)
     eng = Engine(m, tp, batch=2, max_len=MAX_LEN, kv_backend=backend)
-    assert eng.kv_backend == backend
+    assert eng.kv_backend == ("flat" if m.cfg.arch_type == "ssm" else backend)
     run_closed_loop(eng, treqs)
     for j, t in zip(jreqs, treqs):
         assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens, j.out_tokens)
@@ -234,11 +241,13 @@ def test_stats_summary_schema_equals_reference():
     assert stats.summary(ARCH) == ref.summary(ARCH)
 
 
-def test_serve_cli_on_cpu_writes_stats_json(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_on_cpu_writes_stats_json(tmp_path, capsys, arch):
     out = tmp_path / "stats.json"
-    serve.main(["--device", "cpu", "--requests", "3", "--batch", "2", "--new-tokens", "3",
-                "--stats-json", str(out)])
-    assert "served=3" in capsys.readouterr().out
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--batch", "2",
+                "--new-tokens", "3", "--stats-json", str(out)])
+    printed = capsys.readouterr().out
+    assert "served=3" in printed and f"arch={get_smoke_config(arch).name}" in printed
     summary = json.loads(out.read_text())
     assert summary["counters"]["serving.completed"] == 3.0
     assert set(summary["latency"]) == set(ServeStats().summary()["latency"])

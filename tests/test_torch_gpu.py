@@ -17,8 +17,10 @@ torch.set_num_threads(2)
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_plain  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SCAN_TOL = 2e-3  # tests/test_kernels.py's bound for the Pallas scan
 
 
 @pytest.fixture
@@ -95,3 +97,80 @@ def test_wrappers_raise_on_unsupported_input(cuda):
     q = torch.zeros((1, 16, 4, 48), device=cuda)  # head_dim 48 has no kernel
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+def _scan_inputs(rng, B, S, H, P, N, device):
+    """Drawn as tests/test_kernels.py draws them: dt through softplus, A
+    negative."""
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa: E731
+    x = f(rng.standard_normal((B, S, H, P)))
+    dt = f(np.log1p(np.exp(rng.standard_normal((B, S, H)))))
+    A = f(-np.exp(rng.standard_normal(H) * 0.5))
+    return x, dt, A, f(rng.standard_normal((B, S, N))), f(rng.standard_normal((B, S, N)))
+
+
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk",
+    [
+        (1, 128, 2, 32, 16, 32),
+        (2, 256, 4, 64, 32, 64),
+        (1, 64, 8, 16, 64, 64),     # single chunk
+        (2, 96, 2, 32, 16, 32),     # 3 chunks
+        (1, 16, 8, 32, 16, 16),     # mamba2's smoke shape
+        (1, 384, 32, 64, 128, 128), # mamba2-370m's heads and state, 3 chunks
+        (1, 640, 64, 64, 64, 128),  # zamba2-1.2b's, 5 chunks
+        (2, 144, 3, 16, 40, 48),    # chunk and N off the powers of two
+    ],
+)
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    rng = np.random.default_rng(S + N)
+    args = _scan_inputs(rng, B, S, H, P, N, cuda)
+    before = ops.ssm_scan.launches
+    y, fin = ops.ssm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssm_scan.launches == before + 1
+    want_y, want_fin = ssm_scan_plain(*args, chunk)
+    torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(fin, want_fin, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_ssm_scan_kernel_reads_strided_views_and_keeps_padded_states(cuda):
+    """x, B and C as slices of one packed tensor, as the model passes them,
+    and a row whose tail has dt = 0: its state is the state at its end."""
+    rng = np.random.default_rng(1)
+    B, S, H, P, N = 2, 256, 4, 32, 32
+    packed = torch.as_tensor(rng.standard_normal((B, S, H * P + 2 * N)).astype(np.float32),
+                             device=cuda)
+    x = packed[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = packed[..., H * P:H * P + N], packed[..., H * P + N:]
+    _, dt, A, _, _ = _scan_inputs(rng, B, S, H, P, N, cuda)
+    dt[1, 200:] = 0.0
+    y, fin = ops.ssm_scan(x, dt, A, Bm, Cm, chunk=64)
+    want_y, want_fin = ssm_scan_plain(x, dt, A, Bm, Cm, 64)
+    torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(fin, want_fin, atol=SCAN_TOL, rtol=SCAN_TOL)
+    _, fin_short = ops.ssm_scan(x[1:, :200], dt[1:, :200], A, Bm[1:, :200], Cm[1:, :200],
+                                chunk=40)
+    torch.testing.assert_close(fin[1:], fin_short, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_ssm_scan_wrapper_raises_on_unsupported_input(cuda):
+    rng = np.random.default_rng(2)
+    x, dt, A, Bm, Cm = _scan_inputs(rng, 1, 96, 2, 32, 16, cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssm_scan(x, dt, A, Bm, Cm, chunk=64)  # 96 % 64
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssm_scan(*_scan_inputs(rng, 1, 512, 2, 32, 16, cuda), chunk=256)
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssm_scan(x.bfloat16(), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.ssm_scan(x[..., :24], dt, A, Bm, Cm, chunk=32)
+    for n in (300, 18):  # too large; not a multiple of 4
+        with pytest.raises(ValueError, match="state size"):
+            bc = torch.zeros((1, 96, n), device=cuda)
+            ops.ssm_scan(x, dt, A, bc, bc, chunk=32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.ssm_scan(x, dt, A.cpu(), Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ops.ssm_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm,
+                     chunk=32)

@@ -172,8 +172,10 @@ def test_ops_wrappers_refuse_other_devices():
 def test_reset_launches_zeroes_every_counter():
     ops.flash_attention.launches = 3
     ops.paged_decode_attention.launches = 5
+    ops.ssm_scan.launches = 7
     ops.reset_launches()
-    assert ops.launches() == {"flash_attention": 0, "paged_decode_attention": 0}
+    assert ops.launches() == {"flash_attention": 0, "paged_decode_attention": 0,
+                              "ssm_scan": 0}
 
 
 def test_rows_aligned_guards_the_kernels_16_byte_loads():

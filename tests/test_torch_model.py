@@ -1,5 +1,5 @@
-"""The port's config, weight bridge and dense model against the JAX
-package's, on the same bridged weights."""
+"""The port's configs, weight bridge and models (dense, SSM, hybrid)
+against the JAX package's, on the same bridged weights."""
 
 import dataclasses
 
@@ -22,50 +22,82 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.common import flatten  # noqa: E402
 
 ARCH = "qwen3-8b"
+ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b")
+PAGED_ARCHS = ("qwen3-8b", "zamba2-1.2b")  # a pure SSM model has no KV to page
+# one key of each new tree, so a renamed leaf fails loudly
+TREE_KEYS = {
+    "qwen3-8b": ("layers/attn/wq", "layers/mlp/w_up"),
+    "mamba2-370m": ("layers/w_z", "layers/conv_w", "layers/A_log"),
+    "zamba2-1.2b": ("shared_attn/wq", "shared_attn/ln", "layers/mamba_0/w_z",
+                    "layers/mamba_1/w_out"),
+}
 _CACHE = {}
 
 
-def bridged(dtype):
+def bridged(dtype, arch=ARCH):
     """(jax model, jax params, port model, port params) on one set of weights."""
-    if dtype not in _CACHE:
-        jcfg = jax_smoke(ARCH, dtype=dtype)
+    if (arch, dtype) not in _CACHE:
+        jcfg = jax_smoke(arch, dtype=dtype)
         jm = JaxModel(jcfg, remat=False)
         jp, _ = jm.init(jax.random.PRNGKey(0))
-        cfg = get_smoke_config(ARCH, dtype=dtype)
+        cfg = get_smoke_config(arch, dtype=dtype)
         tp = params_from_jax(_flatten(jp), cfg, device="cpu")
-        _CACHE[dtype] = (jm, jp, Model(cfg), tp)
-    return _CACHE[dtype]
+        _CACHE[(arch, dtype)] = (jm, jp, Model(cfg), tp)
+    return _CACHE[(arch, dtype)]
+
+
+def leaves(tree, prefix=""):
+    """{key path: leaf} of a nested dict (either package's cache tree)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def assert_trees_close(mine, theirs, tol, skip=("page_tables",)):
+    a, b = leaves(mine), leaves(theirs)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if k.split("/")[-1] not in skip:
+            np.testing.assert_allclose(f32(a[k]), f32(b[k]), atol=tol, rtol=tol, err_msg=k)
 
 
 def f32(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("getter", ["full", "smoke"])
-def test_config_copy_equals_reference_field_by_field(getter):
+def test_config_copy_equals_reference_field_by_field(getter, arch):
     if getter == "full":
-        mine, theirs = get_config(ARCH), jax_config(ARCH)
+        mine, theirs = get_config(arch), jax_config(arch)
     else:
-        mine, theirs = get_smoke_config(ARCH, dtype="float32"), jax_smoke(ARCH, dtype="float32")
+        mine, theirs = get_smoke_config(arch, dtype="float32"), jax_smoke(arch, dtype="float32")
     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     assert mine.padded_vocab == theirs.padded_vocab
     assert mine.param_count() == theirs.param_count()
     assert mine.kv_bytes_per_token() == theirs.kv_bytes_per_token()
 
 
-def test_bridge_round_trip_covers_every_key():
-    jm, jp, m, tp = bridged("float32")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_round_trip_covers_every_key(arch):
+    jm, jp, m, tp = bridged("float32", arch)
     flat = _flatten(jp)
     mine = flatten(tp)
     assert sorted(mine) == sorted(flat)  # none missing, none extra
     assert sorted(m.param_specs()) == sorted(flat)
+    assert set(TREE_KEYS[arch]) <= set(mine)
     for key, arr in flat.items():
         assert tuple(mine[key].shape) == arr.shape, key
         np.testing.assert_array_equal(mine[key].numpy(), arr)
 
 
-def test_bridge_refuses_missing_extra_and_misshapen_keys():
-    _, jp, m, _ = bridged("float32")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_refuses_missing_extra_and_misshapen_keys(arch):
+    _, jp, m, _ = bridged("float32", arch)
     flat = _flatten(jp)
     cfg = m.cfg
     with pytest.raises(ValueError, match="missing"):
@@ -83,15 +115,20 @@ def test_bf16_bridge_goes_through_float32():
     np.testing.assert_array_equal(tp["layers"]["attn"]["wq"].float().numpy(), want)
 
 
-def test_seeded_init_has_reference_shapes_and_is_reproducible():
-    _, jp, m, _ = bridged("float32")
+@pytest.mark.parametrize("arch,drawn,ones", [
+    ("qwen3-8b", "layers/attn/wq", "layers/ln1"),
+    ("mamba2-370m", "layers/w_xbc", "layers/D"),
+    ("zamba2-1.2b", "shared_attn/wq", "layers/mamba_1/ssm_norm"),
+])
+def test_seeded_init_has_reference_shapes_and_is_reproducible(arch, drawn, ones):
+    _, jp, m, _ = bridged("float32", arch)
     a, b, c = (m.init(seed, device="cpu") for seed in (3, 3, 4))
     shapes = {k: tuple(v.shape) for k, v in flatten(a).items()}
     assert shapes == {k: v.shape for k, v in _flatten(jp).items()}
     for k, v in flatten(a).items():
         assert torch.equal(v, flatten(b)[k]), k
-    assert not torch.equal(flatten(a)["layers/attn/wq"], flatten(c)["layers/attn/wq"])
-    assert torch.all(flatten(a)["layers/ln1"] == 1)
+    assert not torch.equal(flatten(a)[drawn], flatten(c)[drawn])
+    assert torch.all(flatten(a)[ones] == 1)
 
 
 def test_entry_points_refuse_missing_cuda():
@@ -109,26 +146,30 @@ def _prefill_inputs(cfg):
     return toks, lengths
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
-def test_prefill_logits_and_cache_match_jax(dtype, tol):
-    jm, jp, m, tp = bridged(dtype)
+def test_prefill_logits_and_cache_match_jax(dtype, tol, arch):
+    jm, jp, m, tp = bridged(dtype, arch)
     toks, lengths = _prefill_inputs(m.cfg)
     jl, jc = jm.prefill(jp, tokens=jnp.asarray(toks), lengths=jnp.asarray(lengths))
     tl, tc = m.prefill(tp, torch.from_numpy(toks).long(), torch.from_numpy(lengths))
     assert tl.shape == jl.shape
     np.testing.assert_allclose(f32(tl), f32(jl), atol=tol, rtol=tol)
-    np.testing.assert_allclose(f32(tc["layers"]["k"]), f32(jc["layers"]["k"]), atol=tol, rtol=tol)
+    # every cache leaf: attention k/v, SSM conv tails and states
+    assert_trees_close(tc, jc, tol)
     # the padded vocab tail is masked
     assert np.all(f32(tl)[..., m.cfg.vocab_size:] <= -1e29)
 
 
-@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch,paged", [(a, False) for a in ARCHS]
+                         + [(a, True) for a in PAGED_ARCHS])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
-def test_decode_logits_match_jax(dtype, tol, paged):
+def test_decode_logits_match_jax(dtype, tol, arch, paged):
     """Four ragged decode steps from per-slot positions, slot 2 idle, on the
     flat or the paged cache; live rows' logits match (idle rows' are
-    discarded by the engine, and the two packages fill them differently)."""
-    jm, jp, m, tp = bridged(dtype)
+    discarded by the engine, and the two packages fill them differently),
+    and so does every cache leaf (idle slots' SSM states stay as they were)."""
+    jm, jp, m, tp = bridged(dtype, arch)
     B, ps, max_pages = 3, 4, 4
     rng = np.random.default_rng(2)
     if paged:
@@ -150,13 +191,12 @@ def test_decode_logits_match_jax(dtype, tol, paged):
         tl, tcache = tstep(tp, tcache, torch.from_numpy(tok).long(), torch.from_numpy(pos))
         np.testing.assert_allclose(f32(tl)[live], f32(jl)[live], atol=tol, rtol=tol)
         pos = np.where(live, pos + 1, pos)
-    for key in ("pool_k", "pool_v") if paged else ("k", "v"):
-        np.testing.assert_allclose(f32(tcache["layers"][key]), f32(jcache["layers"][key]),
-                                   atol=tol, rtol=tol)
+    assert_trees_close(tcache, jcache, tol)
 
 
-def test_scatter_prefill_into_pages_matches_jax():
-    jm, jp, m, tp = bridged("float32")
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
+def test_scatter_prefill_into_pages_matches_jax(arch):
+    jm, jp, m, tp = bridged("float32", arch)
     toks = np.arange(1, 17, dtype=np.int32)[None]
     _, jpre = jm.prefill(jp, tokens=jnp.asarray(toks), lengths=jnp.asarray([11]))
     _, tpre = m.prefill(tp, torch.from_numpy(toks).long(), torch.tensor([11]))
@@ -164,7 +204,6 @@ def test_scatter_prefill_into_pages_matches_jax():
     tcache = m.init_paged_cache(2, 8, 4, 4, device="cpu")
     jout = jm.scatter_prefill(jcache, jpre, 1, 11, [6, 2, 5])
     tout = m.scatter_prefill(tcache, tpre, 1, 11, [6, 2, 5])
-    for key in ("pool_k", "pool_v"):
-        np.testing.assert_allclose(f32(tout["layers"][key]), f32(jout["layers"][key]),
-                                   atol=1e-5, rtol=1e-5)
-    assert tout["layers"]["pool_k"] is tcache["layers"]["pool_k"]  # in place
+    assert_trees_close(tout, jout, 1e-5)
+    pools = tcache["layers"].get("attn", tcache["layers"])  # the hybrid's sit under attn/
+    assert tout["layers"].get("attn", tout["layers"])["pool_k"] is pools["pool_k"]  # in place

@@ -83,6 +83,7 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
 @pytest.mark.parametrize("name,replaces", [
     ("flash_attention.cu", "src/repro/kernels/flash_attention.py"),
     ("paged_attention.cu", "src/repro/kernels/paged_attention.py"),
+    ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py"),
 ])
 def test_each_cuda_source_opens_with_its_note(name, replaces):
     head = (PORT / "kernels" / "csrc" / name).read_text().split("#include")[0]
