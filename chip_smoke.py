@@ -8,25 +8,31 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: the three CUDA kernels compiled by nvcc from
+2. build: the four CUDA kernels compiled by nvcc from
    ``src/repro_torch/kernels/csrc``, one nvcc each, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the main paths' shapes (attention at qwen3-8b's and
-   zamba2-1.2b's, the SSD scan at mamba2-370m's and zamba2-1.2b's), with
-   its time, the plain version's, a library call's where one exists, and
-   the bound;
+   card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's
+   and granite-20b's, the flat decode on prefix and ring masks, the SSD
+   scan at mamba2-370m's and zamba2-1.2b's), with its time, the plain
+   version's, a library call's where one exists, and the bound;
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
-   qwen3-8b (paged), mamba2-370m (flat) and zamba2-1.2b (paged);
-5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers) and
-   zamba2-1.2b (38 Mamba2 layers, 19 shared-attention calls) at full width
-   and depth, bf16, random weights from --seed, each serving 16 requests
-   through Engine + run_closed_loop, with every kernel's launch count
-   checked against the run's admissions and decode steps;
-6. profiles: for qwen3-8b, eight full decode steps timed on the host clock
-   and eight more traced with torch.profiler (device-busy time by kernel
-   family, idle share, launches per step); for mamba2-370m, one admission
-   of a 1024-token prompt, timed and then traced the same way.
+   qwen3-8b, zamba2-1.2b and granite-20b (paged and flat) and mamba2-370m
+   (flat); and qwen3-8b's ring cache (window 8) driven through
+   Model.prefill and Model.decode_step past the wrap;
+5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers), zamba2-1.2b
+   (38 Mamba2 layers, 19 shared-attention calls) and granite-20b (52
+   layers, on the paged and on the flat backend) at full width and depth,
+   bf16, random weights from --seed, each serving 16 requests through
+   Engine + run_closed_loop, with every kernel's launch count checked
+   against the run's admissions and decode steps; then granite-20b's
+   weights under a 512-token window: a batch-8 prefill of 1,024 tokens and
+   16 decode steps past the wrap on ring caches;
+6. profiles: for qwen3-8b and granite-20b (flat), eight full decode steps
+   timed on the host clock and eight more traced with torch.profiler
+   (device-busy time by kernel family, idle share, launches per step); for
+   mamba2-370m, one admission of a 1024-token prompt, timed and then
+   traced the same way.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -64,9 +70,11 @@ NEW_TOKENS = 64
 # the SSD scan's float32 bound: tests/test_kernels.py's tolerance for the Pallas scan
 SCAN_TOL = 2e-3
 
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+DECODE_REPLACES = "src/repro/kernels/decode_attention.py:74"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:83"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:89"
 SSM_REPLACES = "src/repro/kernels/ssm_scan.py:80"
@@ -183,6 +191,68 @@ def check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch, max_len, page_siz
         fail("paged_decode_attention: a length-0 row is not zero")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+
+
+def decode_masks(rng, batch, S, window):
+    """(batch, S) validity masks as the flat decode sees them: prefixes of
+    ragged lengths 128-1088 (phase 5's prompts plus their new tokens), or,
+    with ``window``, a ring's live slots: ``window`` positions that start
+    at a random slot and wrap around the end of the cache."""
+    valid = np.zeros((batch, S), bool)
+    for b in range(batch):
+        if window is None:
+            valid[b, :int(rng.integers(128, 1089))] = True
+        else:
+            valid[b, (int(rng.integers(0, S)) + np.arange(window)) % S] = True
+    return valid
+
+
+def check_decode(torch, ops, dec_mod, dtype, rng, cfg, batch, S, window=None):
+    """The flat decode kernel against its plain version at a config's
+    decode shape; SDPA with the same boolean mask (GQA heads shared by
+    ``enable_gqa``) timed beside it as a yardstick."""
+    import torch.nn.functional as F
+
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    name = str(dtype).replace("torch.", "")
+    dbytes = torch.tensor([], dtype=dtype).element_size()
+    gen = card_generator(torch, rng)
+    set_bytes = 2 * batch * S * KV * D * dbytes
+    sets = []
+    for _ in range(min(8, max(1, math.ceil(150e6 / set_bytes)))):
+        sets.append((
+            randn(torch, (batch, 1, H, D), dtype, gen),
+            randn(torch, (batch, S, KV, D), dtype, gen),
+            randn(torch, (batch, S, KV, D), dtype, gen),
+            torch.as_tensor(decode_masks(rng, batch, S, window), device="cuda"),
+        ))
+    q, k, v, valid = sets[0]
+    got = ops.decode_attention(q, k, v, valid)
+    want = dec_mod.decode_attention_plain(q[:, 0], k, v, valid)[:, None]
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=TOL[name], rtol=TOL[name])
+    nx = rotating(sets)
+    ms = cuda_ms(torch, lambda: ops.decode_attention(*nx()), 50)
+    plain_ms = cuda_ms(torch, lambda: dec_mod.decode_attention_plain(
+        *(lambda s: (s[0][:, 0],) + s[1:])(nx())), 5)
+    library_ms = cuda_ms(torch, lambda: (lambda s: F.scaled_dot_product_attention(
+        s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
+        attn_mask=s[3][:, None, None, :], scale=1.0 / math.sqrt(D), enable_gqa=True))(nx()),
+        20)
+    rows = int(valid.sum().item())  # the K/V rows the mask marks valid
+    nbytes = 2 * rows * KV * D * dbytes + batch * S + 2 * batch * H * D * dbytes
+    flops = 4.0 * rows * H * D
+    b_ms, b_by = bound(nbytes, flops, name)
+    phase("kernels", kernel="decode_attention", config=cfg.name, dtype=name, B=batch, S=S,
+          H=H, KV=KV, D=D, mask="prefix" if window is None else f"ring{window}",
+          valid_rows=rows, max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    if not ok:
+        fail(f"decode_attention {cfg.name} {name}: max |err| {err:.3e} > {TOL[name]}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
 
 
 def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window):
@@ -304,17 +374,102 @@ def staggered_tokens(Engine, Request, model, params, prompts, new_tokens, backen
     return [list(r.out_tokens) for r in reqs]
 
 
+def ring_tokens(torch, model, params, prompts, steps, device):
+    """Greedy tokens of Model.prefill over ``prompts`` (a multiple of the
+    window) then ``steps`` Model.decode_step calls past the wrap, as the
+    reference's long-context specs drive a ring cache."""
+    B, S = prompts.shape
+    with torch.no_grad():
+        logits, cache = model.prefill(params, torch.as_tensor(prompts, device=device))
+        tok = logits[:, 0].argmax(-1)
+        out = [tok.tolist()]
+        for t in range(steps):
+            pos = torch.full((B,), S + t, dtype=torch.int64, device=device)
+            logits, cache = model.decode_step(params, cache, tok[:, None], pos)
+            tok = logits[:, 0].argmax(-1)
+            out.append(tok.tolist())
+    return out
+
+
+def ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_variant, rng,
+                seed):
+    """qwen3 smoke under long_context_variant(window=8): the card's tokens
+    equal the CPU's through a 16-token prefill and 12 decode steps."""
+    cfg = long_context_variant(get_smoke_config("qwen3-8b", dtype="float32"), window=8)
+    model = Model(cfg)
+    params_cpu = model.init(seed, device="cpu")
+    prompts = rng.integers(1, cfg.vocab_size, size=(2, 16))
+    want = ring_tokens(torch, model, params_cpu, prompts, 12, "cpu")
+    ops.reset_launches()
+    got = ring_tokens(torch, model, tree_to(params_cpu, "cuda"), prompts, 12, "cuda")
+    counts = ops.launches()
+    expect = {"decode_attention": 12 * cfg.num_layers, "flash_attention": cfg.num_layers,
+              "paged_decode_attention": 0, "ssm_scan": 0}
+    phase("parity", config=f"{cfg.name}-ring{cfg.sliding_window}", backend="ring",
+          cpu_tokens=want, cuda_tokens=got, launches=json.dumps(counts))
+    if got != want:
+        fail(f"{cfg.name} ring: the card's tokens differ from the CPU's")
+    if counts != expect:
+        fail(f"{cfg.name} ring: launch counts {counts} != expected {expect}")
+
+
 # -- phase 5: a main path at full width ---------------------------------------------
 
 
-def serve_main(torch, ops, Model, Engine, Request, run_closed_loop, flatten, cfg, seed,
-               expect_backend, expect_counts):
-    """Serve 16 requests of 128-1024 prompt tokens at full width; check the
-    launch counts against ``expect_counts(admissions, steps)``.  The
-    traffic comes from its own generator, seeded by ``seed`` and the
-    config's name, so it does not move when other phases draw more or
-    fewer numbers.  Returns (engine, counts, rng)."""
-    rng = np.random.default_rng([seed, *cfg.name.encode()])
+def ring_main(torch, ops, Model, long_context_variant, cfg, params, rng, window=512,
+              batch=8, S=1024, steps=16):
+    """A full-width model's own weights under long_context_variant(window):
+    a batch prefill of S tokens (windowed flash attention, ring caches of
+    ``window`` rows), then ``steps`` decode steps past the wrap.  Checks
+    finite logits, the launch counts and the ring's slot positions;
+    returns the counts."""
+    model = Model(long_context_variant(cfg, window))
+    L = cfg.num_layers
+    prompts = rng.integers(1, cfg.vocab_size, size=(batch, S))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        t0 = time.monotonic()
+        logits, cache = model.prefill(params, torch.as_tensor(prompts, device="cuda"))
+        bad += (~torch.isfinite(logits)).sum()
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        tok = logits[:, 0].argmax(-1)
+        t0 = time.monotonic()
+        for t in range(steps):
+            pos = torch.full((batch,), S + t, dtype=torch.int64, device="cuda")
+            logits, cache = model.decode_step(params, cache, tok[:, None], pos)
+            bad += (~torch.isfinite(logits)).sum()
+            tok = logits[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+    counts = ops.launches()
+    expect = {"decode_attention": steps * L, "flash_attention": L,
+              "paged_decode_attention": 0, "ssm_scan": 0}
+    want_pos = torch.arange(S - window, S, dtype=torch.int32, device="cuda")
+    want_pos[:steps] = torch.arange(S, S + steps, dtype=torch.int32, device="cuda")
+    slots_ok = bool((cache["layers"]["slot_pos"] == want_pos).all().item())
+    bad = int(bad.item())
+    phase("ring", config=cfg.name, window=window, batch=batch, prefill_tokens=S,
+          decode_steps=steps, cache_rows=tuple(cache["layers"]["k"].shape),
+          prefill_s=f"{prefill_s:.3f}", decode_ms_per_step=f"{decode_s / steps * 1e3:.2f}",
+          peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          launches=json.dumps(counts), expected=json.dumps(expect), slot_pos_ok=slots_ok,
+          nonfinite_logits=bad)
+    if bad:
+        fail(f"{cfg.name} ring: {bad} non-finite logits")
+    if counts != expect:
+        fail(f"{cfg.name} ring: launch counts {counts} != expected {expect}")
+    if not slots_ok:
+        fail(f"{cfg.name} ring: slot positions are not the window's last {window}")
+    return counts
+
+
+
+
+def init_main(torch, Model, flatten, cfg, seed):
+    """A config's model and its random bf16 weights from ``seed``, on the card."""
     model = Model(cfg)
     t0 = time.monotonic()
     params = model.init(seed, device="cuda")
@@ -323,16 +478,30 @@ def serve_main(torch, ops, Model, Engine, Request, run_closed_loop, flatten, cfg
     phase("init", config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
           dtype=cfg.dtype, params=n_params,
           weight_gb=f"{n_params * 2 / 1e9:.2f}", seconds=f"{time.monotonic() - t0:.1f}")
+    return model, params
+
+
+def serve_main(torch, ops, Engine, Request, run_closed_loop, model, params, seed, backend,
+               expect_backend, expect_counts):
+    """Serve 16 requests of 128-1024 prompt tokens at full width on
+    ``backend``; check the launch counts against ``expect_counts(admissions,
+    steps)``.  The traffic comes from its own generator, seeded by ``seed``
+    and the config's name, so it does not move when other phases draw more
+    or fewer numbers, and two backends of one model see the same requests.
+    Returns (engine, counts, rng)."""
+    cfg = model.cfg
+    rng = np.random.default_rng([seed, *cfg.name.encode()])
 
     # warm-up on its own engine (cuBLAS handles, allocator), not counted
-    warm = Engine(model, params, batch=2, max_len=256)
+    warm = Engine(model, params, batch=2, max_len=256, kv_backend=backend)
     run_closed_loop(warm, [Request(rid=0, prompt=np.arange(1, 40, dtype=np.int32),
                                    max_new_tokens=3)])
     del warm
 
-    engine = Engine(model, params, batch=8, max_len=2048, kv_backend="auto", page_size=16)
+    engine = Engine(model, params, batch=8, max_len=2048, kv_backend=backend, page_size=16)
     if engine.kv_backend != expect_backend:
-        fail(f"{cfg.name}: auto backend chose {engine.kv_backend!r}, expected {expect_backend!r}")
+        fail(f"{cfg.name}: {backend} backend gave {engine.kv_backend!r}, expected "
+             f"{expect_backend!r}")
     plens = rng.integers(128, 1025, size=REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=int(L)).astype(np.int32),
                     max_new_tokens=NEW_TOKENS) for i, L in enumerate(plens)]
@@ -397,8 +566,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
     try:
-        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.configs import get_config, get_smoke_config, long_context_variant
         from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import decode_attention as dec_mod
         from repro_torch.kernels import flash_attention as fa_mod
         from repro_torch.kernels import paged_attention as paged_mod
         from repro_torch.kernels import ssm_scan as ssm_mod
@@ -434,7 +604,8 @@ def main() -> None:
 
     # 3. kernels against their plain versions, at the main paths' shapes -------
     rng = np.random.default_rng(args.seed)
-    qwen, mamba, zamba = (get_config(a) for a in ("qwen3-8b", "mamba2-370m", "zamba2-1.2b"))
+    qwen, mamba, zamba, granite = (
+        get_config(a) for a in ("qwen3-8b", "mamba2-370m", "zamba2-1.2b", "granite-20b"))
     results = {}
     for S in (128, 1024):  # prompt buckets: one chunk, and the longest prompt
         for cfg in (mamba, zamba):
@@ -452,10 +623,19 @@ def main() -> None:
                     page_size=16)
         for S in (128, 1024):
             check_flash(torch, ops, fa_mod, dtype, rng, zamba, S, None)
+    # granite-20b: 48 query heads over one KV head, paged and flat; qwen3-8b flat
+    check_paged(torch, ops, paged_mod, torch.bfloat16, rng, granite, batch=8, max_len=2048,
+                page_size=16)
+    results["decode"] = check_decode(torch, ops, dec_mod, torch.bfloat16, rng, granite, 8, 2048)
+    check_decode(torch, ops, dec_mod, torch.bfloat16, rng, granite, 8, 2048, window=512)
+    check_decode(torch, ops, dec_mod, torch.float32, rng, granite, 8, 2048)
+    check_decode(torch, ops, dec_mod, torch.bfloat16, rng, qwen, 8, 2048)
 
     # 4. whole-path parity: the card's kernels against the CPU's plain path ----
-    for arch, backend in (("qwen3-8b", "paged"), ("mamba2-370m", "flat"),
-                          ("zamba2-1.2b", "paged")):
+    for arch, backend in (("qwen3-8b", "paged"), ("qwen3-8b", "flat"),
+                          ("mamba2-370m", "flat"), ("zamba2-1.2b", "paged"),
+                          ("zamba2-1.2b", "flat"), ("granite-20b", "paged"),
+                          ("granite-20b", "flat")):
         scfg = get_smoke_config(arch, dtype="float32")
         smodel = Model(scfg)
         params_cpu = smodel.init(args.seed, device="cpu")
@@ -466,47 +646,87 @@ def main() -> None:
         ops.reset_launches()
         got = staggered_tokens(Engine, Request, smodel, params_gpu, prompts, 6, backend)
         counts = ops.launches()
-        uses = {"flash_attention": scfg.arch_type != "ssm",
-                "paged_decode_attention": backend == "paged",
+        attends = scfg.arch_type != "ssm"
+        uses = {"decode_attention": attends and backend == "flat",
+                "flash_attention": attends,
+                "paged_decode_attention": attends and backend == "paged",
                 "ssm_scan": scfg.arch_type != "dense"}
         phase("parity", config=scfg.name, backend=backend, cpu_tokens=want, cuda_tokens=got,
               launches=json.dumps(counts))
         if got != want:
-            fail(f"{scfg.name}: the card's out_tokens differ from the CPU's")
+            fail(f"{scfg.name} {backend}: the card's out_tokens differ from the CPU's")
         if any(counts[k] == 0 for k, used in uses.items() if used):
-            fail(f"{scfg.name}: parity run did not launch every kernel it uses: {counts}")
+            fail(f"{scfg.name} {backend}: parity run did not launch every kernel it uses: "
+                 f"{counts}")
+    ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_variant, rng,
+                args.seed)
 
     # 5. main paths at full width, each followed by its profile (6) -----------------
-    serve = (torch, ops, Model, Engine, Request, run_closed_loop, flatten)
-    engine, qwen_counts, rng = serve_main(
-        *serve, qwen, args.seed, "paged",
-        lambda admits, steps: {"flash_attention": admits * qwen.num_layers,
+    serve = (torch, ops, Engine, Request, run_closed_loop)
+    counts = []
+    model, params = init_main(torch, Model, flatten, qwen, args.seed)
+    engine, c, rng = serve_main(
+        *serve, model, params, args.seed, "auto", "paged",
+        lambda admits, steps: {"decode_attention": 0,
+                               "flash_attention": admits * qwen.num_layers,
                                "paged_decode_attention": steps * qwen.num_layers,
                                "ssm_scan": 0})
+    counts.append(c)
     profile_decode(torch, engine, qwen, rng, Request)
-    del engine
+    del engine, model, params
     torch.cuda.empty_cache()
 
-    engine, mamba_counts, rng = serve_main(
-        *serve, mamba, args.seed, "flat",
-        lambda admits, steps: {"flash_attention": 0, "paged_decode_attention": 0,
+    model, params = init_main(torch, Model, flatten, mamba, args.seed)
+    engine, c, rng = serve_main(
+        *serve, model, params, args.seed, "auto", "flat",
+        lambda admits, steps: {"decode_attention": 0, "flash_attention": 0,
+                               "paged_decode_attention": 0,
                                "ssm_scan": admits * mamba.num_layers})
+    counts.append(c)
     profile_prefill(torch, engine, mamba, rng, Request)
-    del engine
+    del engine, model, params
     torch.cuda.empty_cache()
 
     n_attn = zamba.num_layers // zamba.shared_attn_every
-    engine, zamba_counts, _ = serve_main(
-        *serve, zamba, args.seed, "paged",
-        lambda admits, steps: {"flash_attention": admits * n_attn,
+    model, params = init_main(torch, Model, flatten, zamba, args.seed)
+    _, c, _ = serve_main(
+        *serve, model, params, args.seed, "auto", "paged",
+        lambda admits, steps: {"decode_attention": 0, "flash_attention": admits * n_attn,
                                "paged_decode_attention": steps * n_attn,
                                "ssm_scan": admits * zamba.num_layers})
-    del engine
+    counts.append(c)
+    del model, params, _
     torch.cuda.empty_cache()
 
-    # launches: the sum over the three main-path runs (each counted from 0)
-    launches = {k: qwen_counts[k] + mamba_counts[k] + zamba_counts[k] for k in qwen_counts}
+    # granite-20b: 40.6 GB of weights, drawn once every earlier model is freed
+    phase("memory", before=granite.name,
+          allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    model, params = init_main(torch, Model, flatten, granite, args.seed)
+    L = granite.num_layers
+    _, c, _ = serve_main(
+        *serve, model, params, args.seed, "auto", "paged",
+        lambda admits, steps: {"decode_attention": 0, "flash_attention": admits * L,
+                               "paged_decode_attention": steps * L, "ssm_scan": 0})
+    counts.append(c)
+    del _
+    engine, c, rng = serve_main(
+        *serve, model, params, args.seed, "flat", "flat",
+        lambda admits, steps: {"decode_attention": steps * L, "flash_attention": admits * L,
+                               "paged_decode_attention": 0, "ssm_scan": 0})
+    counts.append(c)
+    profile_decode(torch, engine, granite, rng, Request)
+    del engine
+    torch.cuda.empty_cache()
+    counts.append(ring_main(torch, ops, Model, long_context_variant, granite, params, rng))
+    del model, params
+    torch.cuda.empty_cache()
+
+    # launches: the sum over the main-path runs (each counted from 0)
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
     summary = {"kernels": [
+        dict(name="decode_attention", route="cuda", source=DECODE_SOURCE,
+             replaces=DECODE_REPLACES, launches=launches["decode_attention"],
+             **results["decode"]),
         dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
              replaces=FLASH_REPLACES, launches=launches["flash_attention"],
              **results[("flash", torch.bfloat16, 512, None)]),
@@ -566,7 +786,8 @@ def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
         torch.cuda.synchronize()
     events = prof.key_averages()
     families, n_kernels = kernel_families(
-        events, {"paged_attention": ("paged_decode_kernel",), "matmul": MATMUL_NAMES})
+        events, {"decode_attention": ("decode_split_kernel", "decode_merge_kernel"),
+                 "paged_attention": ("paged_decode_kernel",), "matmul": MATMUL_NAMES})
     busy_ms = sum(families.values()) / steps / 1e3
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",

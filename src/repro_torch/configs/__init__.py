@@ -2,9 +2,11 @@
 
 The port's own copy of the JAX package's registry, holding the
 architectures the port serves so far: qwen3-8b (dense GQA), mamba2-370m
-(pure SSM) and zamba2-1.2b (Mamba2 with a shared attention block).  Each
-module cites its source model card; ``smoke`` variants are reduced
-same-family configs used by the CPU tests.
+(pure SSM), zamba2-1.2b (Mamba2 with a shared attention block) and
+granite-20b (dense, MQA, GELU MLP).  Each module cites its source model
+card; ``smoke`` variants are reduced same-family configs used by the CPU
+tests.  :func:`long_context_variant` is the reference's sliding-window
+variant, which gives ring caches.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ _MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
     "mamba2-370m": "mamba2_370m",
     "zamba2-1.2b": "zamba2_1p2b",
+    "granite-20b": "granite_20b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
@@ -34,3 +37,13 @@ def get_smoke_config(arch_id: str, **overrides) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     cfg: ModelConfig = mod.SMOKE
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def long_context_variant(cfg: ModelConfig, window: int = 8192) -> ModelConfig:
+    """The sliding-window variant the reference uses for its ``long_500k``
+    shape on architectures whose attention is otherwise full: decode then
+    keeps a ring of ``window`` cache rows.  SSM archs need no change;
+    hybrids window only their shared-attention block."""
+    if cfg.arch_type == "ssm":
+        return cfg
+    return dataclasses.replace(cfg, sliding_window=window)

@@ -2,6 +2,8 @@
 of the JAX package that the port's path runs, each beside its plain
 PyTorch version:
 
+  * ``decode_attention`` — one-token decode over a flat KV cache with a
+    validity mask (``csrc/decode_attention.cu``)
   * ``flash_attention``  — causal prefill attention (``csrc/flash_attention.cu``)
   * ``paged_attention``  — one-token decode over a paged KV pool
     (``csrc/paged_attention.cu``)

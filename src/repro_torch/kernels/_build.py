@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_attention", "paged_attention", "ssm_scan")
+KERNELS = ("decode_attention", "flash_attention", "paged_attention", "ssm_scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -115,7 +115,10 @@ def load(name: str) -> ctypes.CDLL:
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    if name == "flash_attention":
+    if name == "decode_attention":
+        fn = lib.repro_decode_attention
+        fn.argtypes = [p] * 8 + [i] * 8 + [i64] * 6 + [f, p]
+    elif name == "flash_attention":
         fn = lib.repro_flash_attention
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, f, i, p]
     elif name == "paged_attention":

@@ -60,6 +60,70 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// One 32-token tile of one-query attention, shared by the two decode
+// kernels.  K sits in ks as [32][D + 1] floats (padded: lane j reads row j
+// without bank conflicts), V in vs as [32][D], the query rows in qs as
+// [W * R][D], zero past the G real ones.  A warp owns rows warp + W * i,
+// i < R, and keeps their online-softmax state (m, l, acc) in registers,
+// lane holding output columns lane + 32 * c.  Lane j scores token j,
+// masked where !ok; the K value of a column is read once for all R rows.
+// Every row is computed, padding included, so no branch guards the
+// shuffles: the caller writes out only the real rows.
+template <int W, int R, int D>
+__device__ __forceinline__ void attend_tile(const float* qs, const float* ks,
+                                            const float* vs, bool ok, float scale,
+                                            int warp, int lane, float (&m)[R], float (&l)[R],
+                                            float (&acc)[R][D / 32]) {
+  constexpr int C = D / 32;
+  const float* kr = ks + lane * (D + 1);
+  float s[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 qv = *reinterpret_cast<const float4*>(qs + (warp + W * i) * D + d);
+      s[i] += qv.x * k0;
+      s[i] += qv.y * k1;
+      s[i] += qv.z * k2;
+      s[i] += qv.w * k3;
+    }
+  }
+  float p[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float si = ok ? s[i] * scale : kNegInf;
+    const float m_cur = fmaxf(m[i], warp_max(si));
+    p[i] = expf(si - m_cur);
+    const float alpha = expf(m[i] - m_cur);
+    l[i] = l[i] * alpha + warp_sum(p[i]);
+    m[i] = m_cur;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
+  }
+  for (int j = 0; j < 32; ++j) {
+    float vv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) vv[c] = vs[j * D + lane + 32 * c];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float pj = __shfl_sync(kFullMask, p[i], j);
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] += pj * vv[c];
+    }
+  }
+}
+
+// Query rows per warp a decode kernel is compiled for: the smallest of
+// 1, 4, 12 and 16 that covers G rows over `warps` warps (G <= 16 * warps).
+inline int rows_per_warp(int G, int warps) {
+  if (G <= warps) return 1;
+  if (G <= 4 * warps) return 4;
+  return G <= 12 * warps ? 12 : 16;
+}
+
 // Raise a kernel's dynamic shared memory cap where it needs more than the
 // 48 KB a launch gets by default.
 template <typename Kernel>

@@ -17,15 +17,23 @@
 //     tiles; the Pallas grid walks all max_pages and masks the dead ones;
 //   * K/V rows move as 16-byte chunks, and the next tile's chunks are
 //     loaded into registers while the current tile is computed;
-//   * one lane per token of a tile; each warp owns up to 4 query heads and
-//     keeps their online-softmax state (m, l, acc) in registers, so only
-//     the K/V tile crosses shared memory;
+//   * one lane per token of a tile; each warp owns R query heads (R = 1, 4,
+//     12 or 16, compiled for each, so G <= 64: granite-20b's 48 heads over
+//     one KV head take R = 12) and keeps their online-softmax state (m, l,
+//     acc) in registers, so only the K/V tile and the query rows cross
+//     shared memory (attend_tile in common.cuh, shared with the flat
+//     decode).  The 4 * R rows are padded with zeros past G and all
+//     computed, so no branch guards the tile's warp shuffles;
+//     More rows per warp, not a grid axis over groups of heads, so K/V is
+//     still read once per KV head: a grid axis would re-read every page
+//     once per group (3x the bytes at G = 48);
 //   * a length-0 row (an idle slot) runs no tile and writes zeros, since l
 //     is clamped at 1e-30 before the division, as in the Pallas kernel;
 //   * page id 0 is a legal dummy in unused table cells: cells past the
 //     length are never read.
-// Parallelism is B * KV blocks (64 for qwen3-8b at batch 8), under half the
-// SMs; splitting the pages of a long request across blocks is later work.
+// Parallelism is B * KV blocks (64 for qwen3-8b at batch 8, 8 for
+// granite-20b), under half the SMs; splitting the pages of a long request
+// across blocks, as the flat decode does, is later work.
 #include "common.cuh"
 
 namespace {
@@ -34,14 +42,14 @@ using namespace repro;
 
 constexpr int kTT = 32;        // tokens per tile: one per lane
 constexpr int kWarps = 4;
-constexpr int kMaxRows = 4;    // query heads per warp, so G <= 16
+constexpr int kMaxGroup = 16 * kWarps;  // query heads per KV head, R = 16
 
-template <int D>
-size_t paged_smem_bytes(int G) {
-  return sizeof(float) * (G * D + kTT * (D + 1) + kTT * D);
+template <int D, int R>
+size_t paged_smem_bytes() {
+  return sizeof(float) * (kWarps * R * D + kTT * (D + 1) + kTT * D);
 }
 
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     const T* __restrict__ pool_v, const int* __restrict__ page_tables,
@@ -49,9 +57,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     int G, int page_size, int max_pages, int64_t q_sb, int64_t q_sh,
                     float scale) {
   constexpr int C = D / 32;
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [G][D]
-  float* ks = qs + G * D;           // [kTT][D + 1]
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [kWarps * R][D], zero past G
+  float* ks = qs + kWarps * R * D;  // [kTT][D + 1]
   float* vs = ks + kTT * (D + 1);   // [kTT][D]
 
   const int kvh = blockIdx.x;
@@ -63,14 +71,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int* table = page_tables + static_cast<int64_t>(b) * max_pages;
   const int64_t tok_stride = static_cast<int64_t>(KV) * D;  // one token's row in a page
 
-  for (int i = tid; i < G * D; i += kWarps * 32) {
+  for (int i = tid; i < kWarps * R * D; i += kWarps * 32) {
     const int g = i / D, d = i % D;
-    qs[i] = to_float(q[b * q_sb + (kvh * G + g) * q_sh + d]);
+    qs[i] = g < G ? to_float(q[b * q_sb + (kvh * G + g) * q_sh + d]) : 0.f;
   }
 
-  float m[kMaxRows], l[kMaxRows], acc[kMaxRows][C];
+  float m[R], l[R], acc[R][C];
 #pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -119,44 +127,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     __syncthreads();
     if (t0 + kTT < len) load_tile(t0 + kTT);  // in flight while this tile computes
 
-    const bool ok = t0 + lane < len;
-    const float* kr = ks + lane * (D + 1);
-    float p[kMaxRows];
-#pragma unroll
-    for (int i = 0; i < kMaxRows; ++i) {
-      const int g = warp + kWarps * i;  // warp-uniform
-      p[i] = 0.f;
-      if (g >= G) continue;
-      const float* qr = qs + g * D;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      s = ok ? s * scale : kNegInf;
-      const float m_cur = fmaxf(m[i], warp_max(s));
-      p[i] = expf(s - m_cur);
-      const float alpha = expf(m[i] - m_cur);
-      l[i] = l[i] * alpha + warp_sum(p[i]);
-      m[i] = m_cur;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-    }
-
-    for (int j = 0; j < kTT; ++j) {
-      float vv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = vs[j * D + lane + 32 * c];
-#pragma unroll
-      for (int i = 0; i < kMaxRows; ++i) {
-        if (warp + kWarps * i >= G) continue;  // warp-uniform
-        const float pj = __shfl_sync(kFullMask, p[i], j);
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] += pj * vv[c];
-      }
-    }
+    attend_tile<kWarps, R, D>(qs, ks, vs, t0 + lane < len, scale, warp, lane, m, l, acc);
   }
 
 #pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int g = warp + kWarps * i;
     if (g >= G) continue;
     const float denom = fmaxf(l[i], 1e-30f);
@@ -166,14 +141,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* pk, const void* pv, const void* pt,
-                   const void* lens, void* o, int B, int H, int KV, int page_size,
-                   int max_pages, int64_t q_sb, int64_t q_sh, float scale,
-                   cudaStream_t stream) {
-  auto kernel = paged_decode_kernel<T, D>;
+template <typename T, int D, int R>
+cudaError_t launch_rows(const void* q, const void* pk, const void* pv, const void* pt,
+                        const void* lens, void* o, int B, int H, int KV, int page_size,
+                        int max_pages, int64_t q_sb, int64_t q_sh, float scale,
+                        cudaStream_t stream) {
+  auto kernel = paged_decode_kernel<T, D, R>;
   const int G = H / KV;
-  const size_t smem = paged_smem_bytes<D>(G);
+  const size_t smem = paged_smem_bytes<D, R>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(KV, B);
@@ -182,6 +157,27 @@ cudaError_t launch(const void* q, const void* pk, const void* pv, const void* pt
       static_cast<const int*>(pt), static_cast<const int*>(lens), static_cast<T*>(o), H,
       KV, G, page_size, max_pages, q_sb, q_sh, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* pk, const void* pv, const void* pt,
+                   const void* lens, void* o, int B, int H, int KV, int page_size,
+                   int max_pages, int64_t q_sb, int64_t q_sh, float scale,
+                   cudaStream_t s) {
+  switch (rows_per_warp(H / KV, kWarps)) {
+    case 1:
+      return launch_rows<T, D, 1>(q, pk, pv, pt, lens, o, B, H, KV, page_size, max_pages,
+                                  q_sb, q_sh, scale, s);
+    case 4:
+      return launch_rows<T, D, 4>(q, pk, pv, pt, lens, o, B, H, KV, page_size, max_pages,
+                                  q_sb, q_sh, scale, s);
+    case 12:
+      return launch_rows<T, D, 12>(q, pk, pv, pt, lens, o, B, H, KV, page_size, max_pages,
+                                   q_sb, q_sh, scale, s);
+    default:
+      return launch_rows<T, D, 16>(q, pk, pv, pt, lens, o, B, H, KV, page_size, max_pages,
+                                   q_sb, q_sh, scale, s);
+  }
 }
 
 template <typename T>
@@ -216,7 +212,7 @@ extern "C" int repro_paged_decode_attention(const void* q, const void* pool_k,
                                             int B, int H, int KV, int D, int page_size,
                                             int max_pages, int64_t q_sb, int64_t q_sh,
                                             float scale, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > kWarps * kMaxRows || page_size <= 0 ||
+  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxGroup || page_size <= 0 ||
       max_pages <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssm_scan as _ssm
@@ -47,6 +48,25 @@ def flash_attention(
     _fa.launch(qt, kt, vt, out.transpose(1, 2), scale, window)
     flash_attention.launches += 1
     return out
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D) — model layout
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,
+    valid: torch.Tensor,  # (B, S) bool — per-request validity (prefix or ring)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode over the flat cache; (B, 1, H, D) out.  A row with
+    no valid entry gives zeros."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    q3 = q[:, 0]
+    if not _route(q, "decode_attention"):
+        return _dec.decode_attention_plain(q3, k, v, valid, scale)[:, None]
+    out = torch.empty(q3.shape, dtype=q.dtype, device=q.device)
+    _dec.launch(q3, k, v, valid, out, scale)
+    decode_attention.launches += 1
+    return out[:, None]
 
 
 def paged_decode_attention(
@@ -92,11 +112,12 @@ def ssm_scan(
     return y, final
 
 
+decode_attention.launches = 0
 flash_attention.launches = 0
 paged_decode_attention.launches = 0
 ssm_scan.launches = 0
 
-WRAPPERS = (flash_attention, paged_decode_attention, ssm_scan)
+WRAPPERS = (decode_attention, flash_attention, paged_decode_attention, ssm_scan)
 
 
 def reset_launches() -> None:

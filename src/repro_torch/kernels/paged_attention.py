@@ -16,16 +16,15 @@ Layouts (the reference kernel's):
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import decode_attention_plain
 
-NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 16  # query heads per kv head the kernel takes (4 warps x 4 heads)
+MAX_GROUP = 64  # query heads per kv head the kernel takes (4 warps x 16 heads)
 
 
 def paged_decode_attention_plain(
@@ -37,25 +36,18 @@ def paged_decode_attention_plain(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The same function in plain PyTorch: gather each request's pages into a
-    flat cache, then a float32 masked softmax.  Rows with ``length == 0``
-    give zeros, as the kernels do (a softmax over nothing but masked scores
-    would average every gathered row instead)."""
-    B, H, D = q.shape
-    _, page_size, KV, _ = pool_k.shape
+    flat cache, then the flat decode's plain version over its first
+    ``lengths[b]`` rows.  Rows with ``length == 0`` give zeros, as the
+    kernels do (a softmax over nothing but masked scores would average
+    every gathered row instead)."""
+    B = q.shape[0]
+    _, page_size, KV, D = pool_k.shape
     S = page_tables.shape[1] * page_size
-    G = H // KV
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     pt = page_tables.long()
-    k = pool_k[pt].reshape(B, S, KV, D).float()
-    v = pool_v[pt].reshape(B, S, KV, D).float()
-    q4 = q.reshape(B, KV, G, D).float()
-    scores = torch.einsum("bkgd,bskd->bkgs", q4, k) * scale
+    k = pool_k[pt].reshape(B, S, KV, D)
+    v = pool_v[pt].reshape(B, S, KV, D)
     valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]  # (B, S)
-    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v).reshape(B, H, D)
-    o = o.masked_fill((lengths <= 0)[:, None, None], 0.0)
-    return o.to(q.dtype)
+    return decode_attention_plain(q, k, v, valid, scale)
 
 
 def launch(

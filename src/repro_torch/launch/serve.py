@@ -15,6 +15,10 @@ Weights are random, from ``--seed``.
       --device cpu                                       # SSM smoke config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --device cpu                                       # hybrid smoke config
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b \\
+      --device cpu --backend flat                        # MQA smoke config, flat KV
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b --no-smoke \\
+      --backend flat --batch 8 --max-len 2048            # 20 B parameters, one card
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""GQA attention (with qk-norm and RoPE): prefill, flat decode and paged
-decode.
+"""GQA attention (with qk-norm and RoPE): prefill, flat decode (full or
+sliding-window ring cache) and paged decode.
 
 The port of the GQA part of the JAX package's ``models/attention.py``.
 Decode is *ragged*: ``pos`` is a per-request ``(B,)`` vector of positions,
@@ -57,33 +57,43 @@ def _gqa_qkv(
     return q, k, v
 
 
-def _check_full_attention(cfg: ModelConfig) -> None:
-    if cfg.sliding_window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window ring caches are not ported")
-
-
 def gqa_prefill(
     p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence causal attention that also emits the decode cache."""
-    _check_full_attention(cfg)
+    """Full-sequence causal (optionally sliding-window) attention that also
+    emits the decode cache: the whole k/v, or, when the window is shorter
+    than the sequence, the ring of its last ``W`` rows with their
+    positions in ``slot_pos`` (``S`` must then be a multiple of ``W``, so
+    position ``t`` lands in slot ``t % W``)."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
+    W = cfg.sliding_window
+    if W and W < S and S % W:
+        raise ValueError(f"prefill length {S} must be a multiple of the ring window {W}")
     q, k, v = _gqa_qkv(p, cfg, x, positions)
-    o = kernels_bridge.causal_attention(q, k, v)
+    o = kernels_bridge.causal_attention(q, k, v, window=W)
     out = o.reshape(B, S, H * hd) @ p["wo"]
+    if W and W < S:
+        slot_pos = torch.arange(S - W, S, dtype=torch.int32, device=x.device)
+        return out, {"k": k[:, S - W:], "v": v[:, S - W:], "slot_pos": slot_pos.expand(B, W)}
     return out, {"k": k, "v": v}
 
 
 def gqa_init_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
 ) -> Dict[str, torch.Tensor]:
-    _check_full_attention(cfg)
+    """The flat decode cache: ``max_len`` rows, or a ring of ``W`` rows when
+    the sliding window is shorter, with ``slot_pos`` -1 (empty) per slot."""
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
-        "k": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
+    W = cfg.sliding_window
+    rows = W if W and W < max_len else max_len
+    cache = {
+        "k": torch.zeros((batch, rows, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, rows, KV, hd), dtype=dtype, device=device),
     }
+    if rows < max_len:
+        cache["slot_pos"] = torch.full((batch, rows), -1, dtype=torch.int32, device=device)
+    return cache
 
 
 def normalize_pos(pos, batch: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,6 +126,13 @@ def _masked_row_update(
     return cache
 
 
+def prefix_valid(pos: torch.Tensor, max_len: int) -> torch.Tensor:
+    """The full cache's ``(B, max_len)`` mask: row ``s`` of slot ``b`` is
+    valid iff ``s <= pos[b]`` (an idle slot, ``pos < 0``, sees row 0, as in
+    the reference).  The transformer builds it once per decode step."""
+    return torch.arange(max_len, device=pos.device)[None, :] <= pos.clamp(min=0)[:, None]
+
+
 def gqa_decode(
     p: Params,
     cfg: ModelConfig,
@@ -123,19 +140,33 @@ def gqa_decode(
     cache: Dict[str, torch.Tensor],
     pos,  # (B,) per-slot position of the new token (or scalar)
     live: Optional[torch.Tensor] = None,  # (B,) bool or indices; None => pos >= 0
+    valid: Optional[torch.Tensor] = None,  # (B, S) prefix mask of a full cache
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token decode against the flat ``(B, max_len, KV, hd)`` cache."""
-    _check_full_attention(cfg)
+    """One-token decode against the flat cache: the full ``(B, max_len, KV,
+    hd)`` one, or the ring ``(B, W, KV, hd)`` one with ``slot_pos`` (the new
+    token goes to slot ``pos % W``; a slot is valid while its position lies
+    in the window ``(pos - W, pos]``)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
     cpos, derived_live = normalize_pos(pos, B, x.device)
     live = derived_live if live is None else live
     q, k_new, v_new = _gqa_qkv(p, cfg, x, cpos[:, None])
-    k = _masked_row_update(cache["k"], k_new, cpos, live)
-    v = _masked_row_update(cache["v"], v_new, cpos, live)
-    S = k.shape[1]
-    valid = torch.arange(S, device=x.device)[None, :] <= cpos[:, None]  # (B, S)
-    o = kernels_bridge.decode_attention(q, k, v, valid)
+    if "slot_pos" in cache:
+        W = cache["k"].shape[1]
+        slot = cpos % W
+        _masked_row_update(cache["k"], k_new, slot, live)
+        _masked_row_update(cache["v"], v_new, slot, live)
+        rows = live_rows(live)
+        slot_pos = cache["slot_pos"]
+        slot_pos[rows, slot[rows]] = cpos[rows].to(slot_pos.dtype)
+        c = cpos[:, None]
+        valid = (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
+    else:
+        _masked_row_update(cache["k"], k_new, cpos, live)
+        _masked_row_update(cache["v"], v_new, cpos, live)
+        if valid is None:
+            valid = prefix_valid(cpos, cache["k"].shape[1])
+    o = kernels_bridge.decode_attention(q, cache["k"], cache["v"], valid)
     return o.reshape(B, 1, H * hd) @ p["wo"], cache
 
 
@@ -148,8 +179,10 @@ def gqa_init_paged_cache(
 ) -> Dict[str, torch.Tensor]:
     """Per-layer page pools.  One logical page id addresses a slab across all
     layers, so one host-side :class:`~repro_torch.serving.paged_cache.PagePool`
-    table drives every layer's kernel."""
-    _check_full_attention(cfg)
+    table drives every layer's kernel.  A sliding window keeps the flat
+    ring cache, as in the reference."""
+    if cfg.sliding_window:
+        raise NotImplementedError(f"{cfg.name}: the paged cache takes no sliding window")
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     return {
         "pool_k": torch.zeros((num_pages, page_size, KV, hd), dtype=dtype, device=device),

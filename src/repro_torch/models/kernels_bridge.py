@@ -1,34 +1,29 @@
 """Bridge between model code and the kernel layer.
 
 Models call :func:`causal_attention` / :func:`decode_attention` /
-:func:`ssm_scan`.  ``causal_attention`` always goes through :func:`repro_torch.kernels.ops.flash_attention`:
-the CUDA kernel for tensors on a card, at any sequence length (the JAX
-bridge takes its kernel only when ``S % 128 == 0``; this kernel masks the
-ragged tail, so the engine's 16-token prefill buckets use it too), and the
-kernel's plain version on the CPU.  ``decode_attention`` is the plain flat
-decode the flat KV backend uses, as in the JAX package.  ``ssm_scan``
-always goes through :func:`repro_torch.kernels.ops.ssm_scan`, so SSM and
-hybrid prefill run the scan kernel on a card; the JAX package's
-``ssm_forward``/``ssm_prefill`` call their jnp ``ssd_chunked`` directly
-and never reach their Pallas scan.
+:func:`ssm_scan`, and each always goes through its wrapper in
+:mod:`repro_torch.kernels.ops`: the CUDA kernel for tensors on a card, the
+kernel's plain version on the CPU.
 
-GQA grouping (H = KV·G) is handled here so both backends see the same
-contract.
+* ``causal_attention`` takes the flash kernel at any sequence length (the
+  JAX bridge takes its kernel only when ``S % 128 == 0``; this kernel
+  masks the ragged tail, so the engine's 16-token prefill buckets use it
+  too).
+* ``decode_attention`` is the flat cache's decode (prefix or ring mask),
+  so the flat KV backend runs the decode kernel on a card; the JAX package
+  sets ``use_kernels`` on no serving path and takes its jnp einsum there.
+* ``ssm_scan`` makes SSM and hybrid prefill run the scan kernel on a card;
+  the JAX package's ``ssm_forward``/``ssm_prefill`` call their jnp
+  ``ssd_chunked`` directly and never reach their Pallas scan.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
-
-
-def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
-    B, S, H, hd = q.shape
-    return q.reshape(B, S, kv_heads, H // kv_heads, hd)
 
 
 def causal_attention(
@@ -48,18 +43,12 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, H, hd)
     k: torch.Tensor,  # (B, S, KV, hd)
     v: torch.Tensor,  # (B, S, KV, hd)
-    valid: torch.Tensor,  # (B, S) bool — per-request ragged validity
+    valid: torch.Tensor,  # (B, S) bool — per-request validity (prefix or ring)
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    B, _, H, hd = q.shape
-    KV = k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    q5 = _grouped(q, KV)  # (B,1,KV,G,hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() * scale
-    scores = scores.masked_fill(~valid[:, None, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    o = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return o.reshape(B, 1, H, v.shape[-1])
+    """One-token GQA decode over a flat cache, (B, 1, H, hd) out; a row with
+    no valid entry gives zeros (the JAX einsum averages v there)."""
+    return ops.decode_attention(q, k, v, valid, scale=scale)
 
 
 def ssm_scan(

@@ -1,4 +1,4 @@
-"""Dense feed-forward (SwiGLU) block."""
+"""Dense feed-forward block: SwiGLU, or the non-gated GELU MLP."""
 
 from __future__ import annotations
 
@@ -12,16 +12,19 @@ from repro_torch.models.config import ModelConfig
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if not cfg.mlp_gated:
-        raise NotImplementedError(f"{cfg.name}: only the gated (SwiGLU) MLP is ported")
     d, ff = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": ((d, ff), "normal", None),
-        "w_up": ((d, ff), "normal", None),
-        "w_down": ((ff, d), "normal", None),
-    }
+    specs: Dict[str, ParamSpec] = {}
+    if cfg.mlp_gated:
+        specs["w_gate"] = ((d, ff), "normal", None)
+    specs["w_up"] = ((d, ff), "normal", None)
+    specs["w_down"] = ((ff, d), "normal", None)
+    return specs
 
 
 def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:  # non-gated (GPT-BigCode style, e.g. granite-20b)
+        # jax.nn.gelu's default is the tanh form; torch's is the exact erf form
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]

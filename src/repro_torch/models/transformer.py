@@ -3,7 +3,7 @@
 The port of the JAX package's ``models/transformer.py`` for three
 architecture families:
 
-  * dense  : a stack of (GQA attention + SwiGLU) blocks;
+  * dense  : a stack of (GQA attention + MLP) blocks, SwiGLU or GELU;
   * ssm    : a stack of Mamba2 blocks;
   * hybrid : superblocks of ``shared_attn_every`` Mamba2 sublayers followed
              by one call of a single weight-shared GQA block (one weight
@@ -11,11 +11,13 @@ architecture families:
              MLP).
 
 Methods: ``init``, ``embed``, ``logits``, ``prefill``, ``init_cache`` /
-``decode_step`` (flat KV), ``init_paged_cache`` / ``decode_step_paged``
-(paged KV; dense and hybrid) and ``scatter_prefill``.  Parameters are a
-plain nested dict with the JAX key tree; per-layer (or per-superblock)
-parameters are stacked along a leading axis, and the JAX ``lax.scan`` over
-that axis becomes a Python loop.
+``decode_step`` (flat KV; a ring of ``sliding_window`` rows when the
+window is shorter than ``max_len``), ``init_paged_cache`` /
+``decode_step_paged`` (paged KV; dense and hybrid, no window) and
+``scatter_prefill``.  Parameters are a plain nested dict with the JAX key
+tree; per-layer (or per-superblock) parameters are stacked along a
+leading axis, and the JAX ``lax.scan`` over that axis becomes a Python
+loop.
 
 Caches are updated in place (see :mod:`repro_torch.models.attention` and
 :mod:`repro_torch.models.ssm`); the methods still return them, as the
@@ -55,11 +57,12 @@ def _stack(trees: List[Params]) -> Params:
     }
 
 
-def _zeros_stacked(template: Params, n: int) -> Params:
-    """Zeros shaped like ``template`` with a leading axis of ``n``."""
+def _repeat_stacked(template: Params, n: int) -> Params:
+    """``n`` copies of ``template`` stacked along a new leading axis (zeros,
+    and a ring cache's ``slot_pos`` of -1)."""
     return {
-        k: _zeros_stacked(v, n) if isinstance(v, dict)
-        else torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+        k: _repeat_stacked(v, n) if isinstance(v, dict)
+        else v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
         for k, v in template.items()
     }
 
@@ -223,7 +226,7 @@ class Model:
         one = self._layer_cache(
             batch, dev, lambda: attn.gqa_init_cache(cfg, batch, max_len, DTYPES[cfg.dtype], dev)
         )
-        return {"layers": _zeros_stacked(one, self.depth)}
+        return {"layers": _repeat_stacked(one, self.depth)}
 
     def decode_step(
         self, params: Params, cache: Params, token: torch.Tensor, pos
@@ -264,7 +267,7 @@ class Model:
         )
         return {
             "page_tables": torch.zeros((batch, max_pages), dtype=torch.int32, device=dev),
-            "layers": _zeros_stacked(one, self.depth),
+            "layers": _repeat_stacked(one, self.depth),
         }
 
     def decode_step_paged(
@@ -282,11 +285,18 @@ class Model:
         # live-slot indices, found once per step: finding them waits for the
         # device, which every layer doing it would turn into one wait a layer
         rows = attn.live_rows(pos >= 0)
+        # the full flat cache's prefix mask is the same for every layer:
+        # built once per step (a ring cache's comes from each layer's slot_pos)
+        valid = None
+        if not paged and cfg.arch_type != "ssm":
+            kv = cache["layers"].get("attn", cache["layers"])
+            if "slot_pos" not in kv:
+                valid = attn.prefix_valid(pos, kv["k"].shape[2])
 
         def attend(p, h, lc):
             if paged:
                 return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos, rows)[0]
-            return attn.gqa_decode(p, cfg, h, lc, pos, rows)[0]
+            return attn.gqa_decode(p, cfg, h, lc, pos, rows, valid)[0]
 
         x = self.embed(params, token)
         for i in range(self.depth):

@@ -17,10 +17,15 @@ Two KV backends:
   propagates) and a request that cannot grow mid-decode is *preempted* —
   its pages are released and it restarts later with its generated tokens
   folded into the prompt.
-* ``flat`` — the dense per-slot ``(B, max_len, ...)`` cache with plain
-  PyTorch decode attention, kept as the reference the tests hold the paged
-  path against.  A pure SSM model has no growing KV to page: it always
-  takes this backend (its per-slot conv tail and state), ``paged`` included.
+* ``flat`` — the dense per-slot ``(B, max_len, ...)`` cache; the decode
+  step runs the flat decode-attention CUDA kernel on a card over each
+  slot's prefix.  The tests hold the paged path against it.  A pure SSM
+  model has no growing KV to page: it always takes this backend (its
+  per-slot conv tail and state), ``paged`` included.
+
+A sliding window shorter than ``max_len`` (a ring cache) is refused, as
+in the reference, which drives ring caches through ``Model.prefill`` and
+``Model.decode_step`` directly (its ``long_500k`` shape).
 
 The engine runs on the device its params live on.  Sampling happens on the
 host and is identical to the reference: ``temperature == 0`` is argmax,
@@ -117,7 +122,10 @@ class Engine:
 
         cfg = self.cfg
         if cfg.sliding_window and cfg.sliding_window < max_len:
-            raise NotImplementedError("Engine does not serve sliding-window ring caches")
+            raise NotImplementedError(
+                "Engine does not serve sliding-window ring caches; use the flat "
+                "decode path directly (Model.prefill / Model.decode_step)"
+            )
         if kv_backend == "auto":
             backend = "paged" if model.supports_paged_kv else "flat"
         elif kv_backend == "paged" and not model.supports_paged_kv:

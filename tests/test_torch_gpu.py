@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
@@ -71,6 +72,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
         (1, 8, 1, 128, 8, 64, 2),
         (2, 4, 4, 32, 12, 8, 6),
         (4, 32, 8, 128, 40, 16, 9),
+        (3, 48, 1, 128, 40, 16, 9),   # granite-20b: 48 query heads over one KV head
+        (2, 96, 2, 64, 24, 16, 6),    # G = 48 over two KV heads
+        (2, 12, 1, 32, 8, 16, 3),     # G = 12: four rows per warp
     ],
 )
 def test_paged_kernel_matches_plain(cuda, dtype, B, H, KV, D, num_pages, page_size,
@@ -91,6 +95,94 @@ def test_paged_kernel_matches_plain(cuda, dtype, B, H, KV, D, num_pages, page_si
     want = paged_mod.paged_decode_attention_plain(q[:, 0], pk, pv, pt, lengths)[:, None]
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert got[0].abs().max().item() == 0.0
+
+
+def _decode_mask(rng, B, S, kind, device):
+    """A (B, S) bool mask: ragged prefixes (one empty row, one full), or
+    ring-shaped (the live slots of a window that has wrapped: a run of
+    valid slots that starts and ends mid-cache, and one empty row)."""
+    valid = np.zeros((B, S), bool)
+    for b in range(B):
+        if kind == "prefix":
+            valid[b, :int(rng.integers(1, S + 1))] = True
+        else:
+            start, n = int(rng.integers(0, S)), int(rng.integers(1, S + 1))
+            valid[b, (start + np.arange(n)) % S] = True
+    valid[0] = False
+    if B > 1 and kind == "prefix":
+        valid[1] = True
+    return torch.as_tensor(valid, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["prefix", "ring"])
+@pytest.mark.parametrize(
+    "B,KV,G,D,S",
+    [
+        (3, 2, 1, 64, 300),    # one query head per KV head; S not a multiple of 32
+        (4, 2, 4, 128, 1000),  # qwen3-8b's group
+        (3, 1, 48, 128, 2047), # granite-20b: 48 query heads over one KV head
+        (2, 1, 48, 64, 77),
+        (2, 2, 12, 32, 40),    # four rows per warp; the smoke configs' head_dim
+        (1, 8, 4, 128, 5),     # a cache shorter than one tile
+    ],
+)
+def test_decode_kernel_matches_plain(cuda, dtype, kind, B, KV, G, D, S):
+    rng = np.random.default_rng(S + G)
+    H = KV * G
+    q = _randn(rng, (B, 1, H, D), dtype, cuda)
+    k = _randn(rng, (B, S, KV, D), dtype, cuda)
+    v = _randn(rng, (B, S, KV, D), dtype, cuda)
+    valid = _decode_mask(rng, B, S, kind, cuda)
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    want = dec_mod.decode_attention_plain(q[:, 0], k, v, valid)[:, None]
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert got[0].abs().max().item() == 0.0  # a row with nothing valid gives zeros
+
+
+def test_decode_kernel_reads_a_layer_of_the_stacked_cache(cuda):
+    """k/v as one layer of the transformer's stacked (L, B, S, KV, D) cache,
+    q as a head slice of the projection, the mask a broadcast view."""
+    rng = np.random.default_rng(3)
+    L, B, S, KV, G, D = 3, 2, 130, 2, 4, 64
+    kc = _randn(rng, (L, B, S, KV, D), torch.bfloat16, cuda)
+    vc = _randn(rng, (L, B, S, KV, D), torch.bfloat16, cuda)
+    qp = _randn(rng, (B, 1, KV * G * D + 16), torch.bfloat16, cuda)
+    q = qp[..., :KV * G * D].reshape(B, 1, KV * G, D)
+    valid = (torch.arange(S, device=cuda) < 97)[None].expand(B, S)
+    got = ops.decode_attention(q, kc[1], vc[1], valid)
+    want = dec_mod.decode_attention_plain(q[:, 0], kc[1], vc[1], valid)[:, None]
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_decode_wrapper_raises_and_never_falls_back(cuda, monkeypatch):
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (2, 1, 8, 64), torch.float32, cuda)
+    k = _randn(rng, (2, 40, 2, 64), torch.float32, cuda)
+    valid = torch.ones((2, 40), dtype=torch.bool, device=cuda)
+
+    def plain_called(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(dec_mod, "decode_attention_plain", plain_called)
+    ops.decode_attention(q, k, k, valid)  # the kernel, not the plain version
+    before = ops.decode_attention.launches
+    bad = [
+        ((q[..., :48], k[..., :48], k[..., :48], valid), "head_dim"),
+        ((q, k.bfloat16(), k.bfloat16(), valid), "dtype"),
+        ((q, k, k, valid.int()), "bool"),
+        ((q, k, k, valid.cpu()), "CUDA device"),
+        ((q, k, k, valid[:, :39]), "shapes"),
+        ((_randn(rng, (2, 1, 130, 64), torch.float32, cuda), k, k, valid), "kv heads"),
+        ((q, k, k.transpose(1, 2).contiguous().transpose(1, 2), valid), "strides"),
+    ]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            ops.decode_attention(*args)
+    assert ops.decode_attention.launches == before
 
 
 def test_wrappers_raise_on_unsupported_input(cuda):

@@ -111,6 +111,7 @@ def _paged_inputs(rng, B, H, KV, D, num_pages, page_size, max_pages, zero_row):
         (1, 8, 1, 128, 8, 64, 2, False),  # MQA
         (2, 4, 4, 32, 12, 8, 6, False),   # MHA small pages
         (3, 4, 2, 32, 10, 8, 4, True),    # an idle slot: length 0
+        (2, 48, 1, 128, 8, 16, 3, True),  # granite-20b: G = 48 over one KV head
     ],
 )
 def test_paged_plain_matches_pallas_and_ref(B, H, KV, D, num_pages, page_size, max_pages,
@@ -170,12 +171,13 @@ def test_ops_wrappers_refuse_other_devices():
 
 
 def test_reset_launches_zeroes_every_counter():
+    ops.decode_attention.launches = 2
     ops.flash_attention.launches = 3
     ops.paged_decode_attention.launches = 5
     ops.ssm_scan.launches = 7
     ops.reset_launches()
-    assert ops.launches() == {"flash_attention": 0, "paged_decode_attention": 0,
-                              "ssm_scan": 0}
+    assert ops.launches() == {"decode_attention": 0, "flash_attention": 0,
+                              "paged_decode_attention": 0, "ssm_scan": 0}
 
 
 def test_rows_aligned_guards_the_kernels_16_byte_loads():

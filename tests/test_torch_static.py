@@ -81,6 +81,7 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
 
 
 @pytest.mark.parametrize("name,replaces", [
+    ("decode_attention.cu", "src/repro/kernels/decode_attention.py"),
     ("flash_attention.cu", "src/repro/kernels/flash_attention.py"),
     ("paged_attention.cu", "src/repro/kernels/paged_attention.py"),
     ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py"),
