@@ -10,11 +10,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: the four CUDA kernels compiled by nvcc from
    ``src/repro_torch/kernels/csrc``, one nvcc each, all started together;
+   each library's count of tensor-core (HMMA) instructions from
+   ``cuobjdump -sass``, which must not be 0 for flash and flat decode;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's
-   and granite-20b's, the flat decode on prefix and ring masks, the SSD
-   scan at mamba2-370m's and zamba2-1.2b's), with its time, the plain
-   version's, a library call's where one exists, and the bound;
+   and granite-20b's, the ring prefill's batch-8 window, the flat decode on
+   prefix and ring masks, the SSD scan at mamba2-370m's and zamba2-1.2b's),
+   with its time, the plain version's, a library call's where one exists,
+   and the bound;
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
    qwen3-8b, zamba2-1.2b and granite-20b (paged and flat) and mamba2-370m
@@ -31,8 +34,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. profiles: for qwen3-8b and granite-20b (flat), eight full decode steps
    timed on the host clock and eight more traced with torch.profiler
    (device-busy time by kernel family, idle share, launches per step); for
-   mamba2-370m, one admission of a 1024-token prompt, timed and then
-   traced the same way.
+   qwen3-8b and mamba2-370m, one admission of a 1024-token prompt, timed
+   and then traced the same way.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -255,10 +258,10 @@ def check_decode(torch, ops, dec_mod, dtype, rng, cfg, batch, S, window=None):
                 library_ms=library_ms)
 
 
-def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window):
+def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window, B=1):
     import torch.nn.functional as F
 
-    H, KV, D, B = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 1
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     name = str(dtype).replace("torch.", "")
     dbytes = torch.tensor([], dtype=dtype).element_size()
     set_bytes = B * S * (2 * H + 2 * KV) * D * dbytes
@@ -560,6 +563,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.monotonic()
 
     import torch
 
@@ -601,6 +605,11 @@ def main() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    for name in _build.KERNELS:  # tensor-core instructions in the machine code
+        hmma = sum("HMMA" in line for line in _build.sass(name).splitlines())
+        phase("sass", kernel=name, hmma=hmma)
+        if hmma == 0 and name in ("flash_attention", "decode_attention"):
+            fail(f"{name}: no HMMA instruction in its library")
 
     # 3. kernels against their plain versions, at the main paths' shapes -------
     rng = np.random.default_rng(args.seed)
@@ -623,7 +632,12 @@ def main() -> None:
                     page_size=16)
         for S in (128, 1024):
             check_flash(torch, ops, fa_mod, dtype, rng, zamba, S, None)
-    # granite-20b: 48 query heads over one KV head, paged and flat; qwen3-8b flat
+    # granite-20b: 48 query heads over one KV head: its prefill, the ring
+    # phase's windowed batch-8 prefill, paged and flat decode; qwen3-8b flat
+    results["flash_granite"] = check_flash(torch, ops, fa_mod, torch.bfloat16, rng, granite,
+                                           1024, None)
+    results["flash_ring"] = check_flash(torch, ops, fa_mod, torch.bfloat16, rng, granite, 1024,
+                                        512, B=8)
     check_paged(torch, ops, paged_mod, torch.bfloat16, rng, granite, batch=8, max_len=2048,
                 page_size=16)
     results["decode"] = check_decode(torch, ops, dec_mod, torch.bfloat16, rng, granite, 8, 2048)
@@ -673,6 +687,9 @@ def main() -> None:
                                "ssm_scan": 0})
     counts.append(c)
     profile_decode(torch, engine, qwen, rng, Request)
+    profile_prefill(torch, engine, qwen, rng, Request,
+                    {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
+                     "matmul": MATMUL_NAMES})
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -683,7 +700,8 @@ def main() -> None:
                                "paged_decode_attention": 0,
                                "ssm_scan": admits * mamba.num_layers})
     counts.append(c)
-    profile_prefill(torch, engine, mamba, rng, Request)
+    profile_prefill(torch, engine, mamba, rng, Request,
+                    {"ssm_scan": ("ssd_scan_kernel", "chunk_cb_kernel"), "matmul": MATMUL_NAMES})
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -721,6 +739,7 @@ def main() -> None:
     del model, params
     torch.cuda.empty_cache()
 
+    phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)
     launches = {k: sum(c[k] for c in counts) for k in counts[0]}
     summary = {"kernels": [
@@ -786,7 +805,7 @@ def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
         torch.cuda.synchronize()
     events = prof.key_averages()
     families, n_kernels = kernel_families(
-        events, {"decode_attention": ("decode_split_kernel", "decode_merge_kernel"),
+        events, {"decode_attention": ("decode_split", "decode_merge_kernel"),
                  "paged_attention": ("paged_decode_kernel",), "matmul": MATMUL_NAMES})
     busy_ms = sum(families.values()) / steps / 1e3
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
@@ -799,10 +818,11 @@ def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
         engine.step()
 
 
-def profile_prefill(torch, engine, cfg, rng, Request, L: int = 1024) -> None:
+def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -> None:
     """One admission of an ``L``-token prompt timed on the host clock, then
-    another traced with torch.profiler: device time by kernel family, the
-    device's idle share of the untraced admission, kernels per prefill."""
+    another traced with torch.profiler: device time by kernel family
+    (``families`` as kernel_families takes them), the device's idle share of
+    the untraced admission, kernels per prefill."""
     from torch.profiler import ProfilerActivity, profile
 
     def admit(rid):
@@ -817,8 +837,7 @@ def profile_prefill(torch, engine, cfg, rng, Request, L: int = 1024) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         admit(20_002)
     events = prof.key_averages()
-    families, n_kernels = kernel_families(
-        events, {"ssm_scan": ("ssd_scan_kernel", "chunk_cb_kernel"), "matmul": MATMUL_NAMES})
+    families, n_kernels = kernel_families(events, families)
     busy_ms = sum(families.values()) / 1e3
     phase("profile", config=cfg.name, prefill_tokens=L, admit_ms=f"{admit_ms:.3f}",
           device_busy_ms=f"{busy_ms:.3f}",

@@ -98,6 +98,19 @@ def build_all(names=KERNELS) -> None:
         _finish(n, job)
 
 
+def sass(name: str) -> str:
+    """The built library's machine code (``cuobjdump -sass``), from the
+    cuobjdump beside nvcc."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    out = subprocess.run([str(tool), "-sass", str(_lib_path(name))], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {name}: {out.stderr.strip()}")
+    return out.stdout
+
+
 def build_log(name: str) -> str:
     """nvcc's output for ``name`` (register, shared-memory and spill counts)."""
     path = _lib_path(name).with_suffix(".log")

@@ -6,12 +6,40 @@
 // What bounds it on the H100: at the engine's prompt lengths (S of a few
 // hundred to a few thousand, head_dim 128) the work is 4*D flops for every
 // causally live (query, key) pair against (q + k + v + o) bytes moved once,
-// so it turns from memory-bound to compute-bound near S ~ 600 in bf16.
-// This first version does its products on the CUDA cores in float32, not
-// on the tensor cores, so in practice it is bound by shared-memory traffic
-// and FP32 issue rate; wgmma/TMA tiles are later work.
+// so it turns from memory-bound to compute-bound near S ~ 600 in bf16: at
+// qwen3-8b's S = 512 the causal work is 2.15 GFLOP, 2.2 us at the bf16
+// tensor cores' 989 TFLOP/s and 32 us at the CUDA cores' 67 in float32.
 //
-// Design:
+// Design: two kernels, by input type.
+//
+// bf16 (flash_mma_kernel), on the tensor cores, FA2-style:
+//   * one block per (64-row query tile, head, batch), 4 warps of 16 query
+//     rows; a warp loads its rows' Q fragments once (ldmatrix) and keeps
+//     them, its online-softmax state and its 16 x D output in registers;
+//   * K and V move in 64-key tiles, 16-byte cp.async straight into shared
+//     memory as bf16, two stages: the next tile is in flight while the
+//     current one is computed; rows are padded to D + 8 so ldmatrix reads
+//     them without bank conflicts; rows past S are zero-filled;
+//   * S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32 products
+//     (attend_tile_mma in mma.cuh); the row max and sum are shuffles within
+//     a quad, exp2f takes scale * log2(e) folded into the scores, and P is
+//     rounded to bf16 in registers and used as the A operand of P V, with
+//     V's fragments from ldmatrix.trans;
+//   * the mask runs only on the diagonal tile and on tiles the window's
+//     lower edge cuts; the kv loop stops at the causal limit and starts at
+//     the window's lower edge, as the Pallas kernel's pl.when skips dead
+//     blocks;
+//   * the query tiles are the slowest grid axis, longest (last) first, so
+//     the short tiles of the causal tail fill the SMs at the end instead of
+//     leaving them idle;
+//   * P rounded to bf16 before P V is the one rounding the float32
+//     reference lacks; bf16 x bf16 products summed in f32 are what the
+//     Pallas kernel's upcast-then-f32 dot computes.
+//
+// float32 (flash_attention_kernel), on the CUDA cores, as first written:
+//   TF32 tensor cores would keep about three decimal digits, past the 1e-4
+//   float32 tolerance, and would break the token parity between the CPU's
+//   plain path and the card that the float32 smoke configs check.
 //   * one block per (query tile of 32 rows, head, batch); 4 warps, each
 //     owning 8 query rows end to end (scores, online softmax, P.V), so the
 //     softmax state never leaves registers and needs no block barrier;
@@ -22,18 +50,20 @@
 //     registers while the current one is computed, and are staged in
 //     shared memory as float32 (the K rows padded by one word so lanes
 //     reading different keys hit different banks);
-//   * the kv loop runs only over tiles the causal limit (and the window's
-//     lower edge) can reach, as the Pallas kernel's pl.when skips dead
-//     blocks; the ragged tail (S not a multiple of the tile) is masked and
-//     zero-filled, so any S works;
-//   * tiles are cut from the strides the wrapper passes, so the model's
-//     (B, S, H, D) layout is read in place; masking uses -1e30 as the JAX
-//     code does, and l is clamped at 1e-30 before the final division.
+//   * the kv loop bounds and the ragged tail as in the bf16 kernel.
+//
+// Both read q/k/v/o through the strides the wrapper passes, so the model's
+// (B, S, H, D) layout is read in place; any S works (the ragged tail is
+// masked); masking uses -1e30 as the JAX code does, and l is clamped at
+// 1e-30 before the final division.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using namespace repro;
+
+// -- float32: the CUDA-core kernel --------------------------------------------
 
 constexpr int kBQ = 32;                 // query rows per block
 constexpr int kBK = 32;                 // keys per tile: one per lane
@@ -199,6 +229,157 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
+// -- bf16: the tensor-core kernel ---------------------------------------------
+
+constexpr int kMmaRows = 16 * kWarps;  // query rows per block: 16 a warp
+constexpr int kMmaKeys = 64;           // keys per K/V tile
+
+template <int D>
+constexpr size_t flash_mma_smem_bytes() {
+  // the Q tile, then two stages of K and two of V
+  return sizeof(__nv_bfloat16) * kLd<D> * (kMmaRows + 4 * kMmaKeys);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+                 int G, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                 int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                 float scale_log2, int window) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = kLd<D>;
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kPer = kMmaKeys * kChunks / (kWarps * 32);
+  static_assert(kPer >= 1 && kMmaKeys * kChunks % (kWarps * 32) == 0, "tile split");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
+  bf16* ks = qs + kMmaRows * LD;                 // [2][kMmaKeys][LD]
+  bf16* vs = ks + 2 * kMmaKeys * LD;             // [2][kMmaKeys][LD]
+
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest query tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q_start = qt * kMmaRows;
+  const int kvh = h / G;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+
+  // Q rows by cp.async where they are 16-byte aligned, else element by
+  // element (a strided view need not be); rows past S are zeros.
+  if (reinterpret_cast<uintptr_t>(qb) % 16 == 0 && q_ss % 8 == 0) {
+    for (int c = tid; c < kMmaRows * kChunks; c += kWarps * 32) {
+      const int r = c / kChunks, d0 = (c % kChunks) * 8, qi = q_start + r;
+      cp_async_16(qs + r * LD + d0, qb + (qi < S ? qi : 0) * q_ss + d0, qi < S);
+    }
+  } else {
+    for (int i = tid; i < kMmaRows * D; i += kWarps * 32) {
+      const int r = i / D, d = i % D, qi = q_start + r;
+      qs[r * LD + d] = qi < S ? qb[qi * q_ss + d] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();  // group: Q
+
+  // one 64-key tile of K and V into a stage, rows past S zero-filled
+  auto load_kv = [&](int stage, int k_start) {
+    bf16* kd = ks + stage * kMmaKeys * LD;
+    bf16* vd = vs + stage * kMmaKeys * LD;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = tid + i * kWarps * 32;
+      const int r = c / kChunks, d0 = (c % kChunks) * 8, kj = k_start + r;
+      const int64_t row = kj < S ? kj : 0;
+      cp_async_16(kd + r * LD + d0, kb + row * k_ss + d0, kj < S);
+      cp_async_16(vd + r * LD + d0, vb + row * v_ss + d0, kj < S);
+    }
+  };
+
+  const int kv_first = window > 0 ? max(0, q_start - window + 1) : 0;
+  const int t_first = kv_first / kMmaKeys;
+  load_kv(0, t_first * kMmaKeys);
+  cp_async_commit();  // group: the first K/V tile
+
+  cp_async_wait<1>();
+  __syncthreads();  // Q landed
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(qf, qs + warp * 16 * LD, lane);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  const int row0 = q_start + warp * 16;  // the warp's first query row
+
+  // the diagonal tile (t == qt, since query and key tiles are both 64 wide)
+  // is the causal limit; every tile before it is causally whole
+  int stage = 0;
+  for (int t = t_first; t <= qt; ++t, stage ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t < qt) load_kv(stage ^ 1, (t + 1) * kMmaKeys);  // in flight while t computes
+    cp_async_commit();
+    const bf16* kt = ks + stage * kMmaKeys * LD;
+    const bf16* vt = vs + stage * kMmaKeys * LD;
+    const int k_start = t * kMmaKeys;
+    if (t == qt || (window > 0 && k_start + window <= q_start + kMmaRows - 1)) {
+      auto ok = [&](int r, int j) {
+        const int qi = row0 + r, kj = k_start + j;
+        return kj <= qi && (window <= 0 || kj > qi - window);
+      };
+      attend_tile_mma<D, kMmaKeys, true>(qf, kt, vt, scale_log2, ok, lane, m, l, acc);
+    } else {
+      attend_tile_mma<D, kMmaKeys, false>(qf, kt, vt, scale_log2,
+                                          [](int, int) { return true; }, lane, m, l, acc);
+    }
+  }
+
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);  // every lane: shuffles
+    const int qi = row0 + g + 8 * r;
+    if (qi >= S) continue;
+    bf16* orow = o + b * o_sb + qi * o_ss + h * o_sh + 2 * t4;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(orow + nb * 8) =
+          pack_bf16(acc[nb][2 * r] / denom, acc[nb][2 * r + 1] / denom);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                       int H, int KV, const int64_t* st, float scale, int window,
+                       cudaStream_t stream) {
+  auto kernel = flash_mma_kernel<D>;
+  const size_t smem = flash_mma_smem_bytes<D>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (S + kMmaRows - 1) / kMmaRows);  // query tiles slowest
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H / KV, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      scale * kLog2e, window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v, void* o, int B,
+                         int S, int H, int KV, const int64_t* st, float scale, int window,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_mma<32>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
+    case 64: return launch_mma<64>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
+    case 128: return launch_mma<128>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KV, const int64_t* st, float scale,
@@ -214,8 +395,9 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 }  // namespace
 
 // q/k/v/o element strides in `strides`, 12 values: (batch, seq, head) for
-// q, k, v, o in that order; the head_dim axis must be contiguous, and k and
-// v 16-byte aligned with strides that keep every row 16-byte aligned.
+// q, k, v, o in that order; the head_dim axis must be contiguous, k and v
+// 16-byte aligned with strides that keep every row 16-byte aligned, and o's
+// rows 4-byte aligned (the bf16 kernel stores pairs).
 // window <= 0 means no sliding window.  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, int dtype, int B, int S, int H, int KV,
@@ -226,7 +408,6 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (dtype == kFloat32)
     return dispatch_dim<float>(D, q, k, v, o, B, S, H, KV, strides, scale, window, s);
   if (dtype == kBFloat16)
-    return dispatch_dim<__nv_bfloat16>(D, q, k, v, o, B, S, H, KV, strides, scale,
-                                       window, s);
+    return dispatch_mma(D, q, k, v, o, B, S, H, KV, strides, scale, window, s);
   return cudaErrorInvalidValue;
 }

@@ -7,7 +7,8 @@ cache rows its ``(B, S)`` mask marks valid (a prefix, or a ring cache's
 live slots); query head ``h`` reads KV head ``h // G``; a row with no
 valid entry gives zeros.  The sequence is cut into splits that run as
 separate blocks, and a second launch merges their partials
-(flash-decoding).
+(flash-decoding).  bf16 runs its products on the tensor cores in 64-token
+tiles, float32 on the CUDA cores in 32-token tiles.
 
 Layouts (the reference kernel's, with a bool mask):
   q     : (B, H, D), any strides with a contiguous D
@@ -26,8 +27,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 64  # query heads per kv head the kernel takes (4 warps x 16 rows)
-TILE = 32  # tokens per tile; a split is a whole number of tiles
+MAX_GROUP = 64  # query heads per kv head the kernels take (4 tiles of 16 rows)
+TILE = 32  # tokens per tile of the float32 kernel; a split is a whole number of tiles
+MMA_TILE = 64  # tokens per tile of the bf16 (tensor-core) kernel
 
 
 def decode_attention_plain(
@@ -54,12 +56,12 @@ def decode_attention_plain(
     return o.to(q.dtype)
 
 
-def splits_for(B: int, KV: int, S: int, sm_count: int) -> Tuple[int, int]:
+def splits_for(B: int, KV: int, S: int, sm_count: int, tile: int = TILE) -> Tuple[int, int]:
     """(splits, split_len): enough splits that B * KV * splits blocks about
-    fill the card once, each a whole number of tiles."""
+    fill the card once, each a whole number of ``tile``-token tiles."""
     want = max(1, -(-sm_count // (B * KV)))
     split_len = -(-S // want)
-    split_len = -(-split_len // TILE) * TILE
+    split_len = -(-split_len // tile) * tile
     return -(-S // split_len), split_len
 
 
@@ -111,7 +113,8 @@ def launch(
     for name, t in (("k", k), ("v", v)):  # read as 16-byte chunks
         if not _build.rows_aligned(t, 16):
             raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
-    splits, split_len = splits_for(B, KV, S, _sm_count(q.device))
+    tile = MMA_TILE if q.dtype == torch.bfloat16 else TILE
+    splits, split_len = splits_for(B, KV, S, _sm_count(q.device), tile)
     part_m = torch.empty((B, H, splits), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B, H, splits, D), dtype=torch.float32, device=q.device)

@@ -2,7 +2,9 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas
 ``flash_attention_bhsd``: f32 online softmax over kv tiles up to the causal
-limit, optional sliding window (``kj > qi - window``), GQA by ``h // G``.
+limit, optional sliding window (``kj > qi - window``), GQA by ``h // G``;
+bf16 runs its products on the tensor cores (P rounded to bf16 before P·V),
+float32 on the CUDA cores.
 It reads q/k/v through their strides, so the model layout needs no copy,
 and masks the ragged tail, so any ``S`` works.
 
@@ -82,9 +84,10 @@ def launch(
         raise ValueError(f"flash_attention: {H} heads not a multiple of {KV} kv heads")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
-    for name, t in (("k", k), ("v", v)):  # read as 16-byte chunks
-        if not _build.rows_aligned(t, 16):
-            raise ValueError(f"flash_attention: {name} rows are not 16-byte aligned")
+    # k and v are read as 16-byte chunks; the bf16 kernel stores pairs of out
+    for name, t, n in (("k", k, 16), ("v", v, 16), ("out", out, 4)):
+        if not _build.rows_aligned(t, n):
+            raise ValueError(f"flash_attention: {name} rows are not {n}-byte aligned")
     fn = _build.load("flash_attention").repro_flash_attention
     # (batch, seq, head) strides of q, k, v, out: dims 0, 2, 1 of bhsd
     strides = _build.strides_arg([q, k, v, out], (0, 2, 1))

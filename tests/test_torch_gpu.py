@@ -46,6 +46,12 @@ def _randn(rng, shape, dtype, device):
         (1, 8, 2, 100, 128, 33),
         (2, 32, 8, 257, 128, None),
         (1, 2, 2, 130, 64, 1),
+        (1, 48, 1, 1000, 128, None),  # granite-20b: 48 query heads over one KV head
+        (1, 32, 32, 1024, 64, None),  # zamba2-1.2b's shared attention
+        (8, 8, 1, 1024, 128, 512),    # the ring prefill: batch 8 under a 512 window
+        (1, 4, 2, 1, 64, None),       # ragged against the 64-row query tile
+        (2, 4, 2, 15, 128, None),
+        (1, 4, 1, 65, 32, 40),
     ],
 )
 def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
@@ -61,6 +67,22 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 1 / math.sqrt(D), window
     ).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_kernel_reads_q_rows_that_are_not_16_byte_aligned(cuda):
+    """q as a view one element into a wider tensor: the bf16 kernel loads
+    such rows element by element instead of by cp.async."""
+    rng = np.random.default_rng(5)
+    B, S, H, KV, D = 2, 100, 4, 2, 64
+    q = _randn(rng, (B, S, H, D + 1), torch.bfloat16, cuda)[..., 1:]
+    k = _randn(rng, (B, S, KV, D), torch.bfloat16, cuda)
+    v = _randn(rng, (B, S, KV, D), torch.bfloat16, cuda)
+    assert q.data_ptr() % 16 != 0
+    got = ops.flash_attention(q, k, v)
+    want = fa_mod.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 1 / math.sqrt(D)
+    ).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -125,6 +147,9 @@ def _decode_mask(rng, B, S, kind, device):
         (2, 1, 48, 64, 77),
         (2, 2, 12, 32, 40),    # four rows per warp; the smoke configs' head_dim
         (1, 8, 4, 128, 5),     # a cache shorter than one tile
+        (3, 1, 20, 128, 700),  # G not a multiple of 16: two 16-row tiles, 12 padding rows
+        (3, 2, 6, 64, 130),    # G = 6: one 16-row tile, 10 padding rows
+        (2, 1, 64, 64, 200),   # G = 64: four 16-row tiles, one a warp
     ],
 )
 def test_decode_kernel_matches_plain(cuda, dtype, kind, B, KV, G, D, S):

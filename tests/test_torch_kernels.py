@@ -14,6 +14,9 @@ from repro.kernels import ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
 from repro.kernels.paged_attention import paged_decode_attention  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    MMA_TILE, decode_attention_plain, splits_for,
+)
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_decode_attention_plain  # noqa: E402
 
@@ -90,6 +93,134 @@ def test_flash_plain_ragged_lengths_match_ref(S, window, dtype):
     got = f32(flash_attention_plain(qt, kt, vt, window=window))
     want = f32(ref.flash_attention_ref(qj, kj, vj, window=window))
     np.testing.assert_allclose(got, want, atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+# -- the bf16 tensor-core kernels' order of work, in plain torch ----------------
+#
+# The CUDA kernels cannot run here.  These emulations follow their tile
+# order and their one extra rounding (P to bf16 before P·V, as the mma.sync
+# A operand): 64-key tiles, an online softmax in the log2 domain with
+# scale * log2(e) folded in, float32 accumulation of bf16 x bf16 products.
+# Held against the float32 plain versions and the JAX oracles at the bf16
+# tolerance, they show the design fits it where there is no card.
+
+LOG2E = 1.4426950408889634
+MMA_KEYS = 64  # keys per tile of the bf16 flash kernel
+
+
+def _online_tile(m, l, acc, s, v, ok):
+    """One tile: scores ``s`` (.., n) in log2 units, V (.., n, D), mask
+    ``ok``; returns the updated (m, l, acc)."""
+    s = s.masked_fill(~ok, -1e30)
+    mx = torch.maximum(m, s.amax(-1))
+    alpha, p = torch.exp2(m - mx), torch.exp2(s - mx[..., None])
+    pv = p.bfloat16().float() @ v  # P rounded to bf16, products summed in f32
+    return mx, l * alpha + p.sum(-1), acc * alpha[..., None] + pv
+
+
+def _flash_tiles_emulated(q, k, v, scale, window=None):
+    """q (B, H, S, D), k/v (B, KV, S, D), bf16; the flash kernel's order."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=1) for x in (k, v))
+    m = torch.full((B, H, S), -1e30)
+    l, acc = torch.zeros((B, H, S)), torch.zeros((B, H, S, D))
+    qi = torch.arange(S)[:, None]
+    for k0 in range(0, S, MMA_KEYS):
+        kj = torch.arange(k0, min(k0 + MMA_KEYS, S))[None, :]
+        ok = kj <= qi
+        if window is not None:
+            ok &= kj > qi - window
+        s = qf @ kf[:, :, k0:k0 + MMA_KEYS].transpose(-1, -2) * (scale * LOG2E)
+        m, l, acc = _online_tile(m, l, acc, s, vf[:, :, k0:k0 + MMA_KEYS], ok)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("S,window", [(1024, None), (1024, 512), (1000, None)])
+def test_flash_mma_rounding_fits_the_bf16_tolerance(S, window):
+    """qwen3-8b's head_dim and group (D 128, G 4), at S = 1024 and a ragged S."""
+    B, H, KV, D = 1, 8, 2, 128
+    rng = np.random.default_rng(S + (window or 0))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(normal(rng, s), "bfloat16") for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))
+    )
+    got = f32(_flash_tiles_emulated(qt, kt, vt, D ** -0.5, window))
+    tol = FLASH_TOL["bfloat16"]
+    plain = f32(flash_attention_plain(qt, kt, vt, window=window))
+    np.testing.assert_allclose(got, plain, atol=tol, rtol=tol)
+    want = f32(ref.flash_attention_ref(qj, kj, vj, window=window))
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+def _decode_tiles_emulated(q, k, v, valid, scale, sm_count=132):
+    """q (B, H, D), k/v (B, S, KV, D), bf16, valid (B, S) bool; the flat
+    decode kernel's order: splits of whole 64-token tiles, each tile's
+    tokens cut among KS warps (KS = 4, 2, 1 for 1, 2, >= 3 row tiles of
+    16), a warp skipping a slice with nothing valid, the warps merged in
+    the block, then the splits merged."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    KS = {1: 4, 2: 2}.get(-(-G // 16), 1)
+    NT = MMA_TILE // KS
+    splits, split_len = splits_for(B, KV, S, sm_count, MMA_TILE)
+    q4 = q.float().reshape(B, KV, G, D)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B, KV, S, D)
+    parts = []
+    for sp in range(splits):
+        s0, s1 = sp * split_len, min(S, (sp + 1) * split_len)
+        warps = []
+        for kq in range(KS):
+            m = torch.full((B, KV, G), -1e30)
+            l, acc = torch.zeros((B, KV, G)), torch.zeros((B, KV, G, D))
+            for t in range(s0, s1, MMA_TILE):
+                lo, hi = t + kq * NT, min(t + (kq + 1) * NT, s1)
+                if lo >= hi:
+                    continue
+                ok = valid[:, None, None, lo:hi]
+                s = q4 @ kf[:, :, lo:hi].transpose(-1, -2) * (scale * LOG2E)
+                new = _online_tile(m, l, acc, s, vf[:, :, lo:hi], ok)
+                live = ok.any(-1)  # (B, 1, 1): the slice is skipped where nothing is valid
+                m, l = torch.where(live, new[0], m), torch.where(live, new[1], l)
+                acc = torch.where(live[..., None], new[2], acc)
+            warps.append((m, l, acc))
+        mx = torch.stack([w[0] for w in warps]).amax(0)
+        w = [torch.exp2(x[0] - mx) for x in warps]
+        parts.append((mx / LOG2E, sum(x[1] * wi for x, wi in zip(warps, w)),
+                      sum(x[2] * wi[..., None] for x, wi in zip(warps, w))))
+    mx = torch.stack([p[0] for p in parts]).amax(0)  # the merge kernel, natural log
+    w = [torch.exp(p[0] - mx) for p in parts]
+    lsum = sum(p[1] * wi for p, wi in zip(parts, w))
+    acc = sum(p[2] * wi[..., None] for p, wi in zip(parts, w))
+    return (acc / lsum.clamp_min(1e-30)[..., None]).reshape(B, H, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("kind", ["prefix", "ring"])
+@pytest.mark.parametrize("B,KV,G", [(3, 2, 1), (3, 2, 4), (2, 1, 48)])
+def test_decode_mma_rounding_fits_the_bf16_tolerance(B, KV, G, kind):
+    """The flat decode at zamba2-1.2b's G = 1, qwen3-8b's G = 4 and
+    granite-20b's G = 48, head_dim 128, a 2048-row cache; masks per row
+    (ragged prefixes or a wrapped ring run, one row empty)."""
+    S, D, H = 2048, 128, KV * G
+    rng = np.random.default_rng(G + len(kind))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(normal(rng, s), "bfloat16") for s in ((B, H, D), (B, S, KV, D), (B, S, KV, D))
+    )
+    valid = np.zeros((B, S), bool)
+    for b in range(1, B):
+        n = int(rng.integers(1, S + 1))
+        start = 0 if kind == "prefix" else int(rng.integers(0, S))
+        valid[b, (start + np.arange(n)) % S] = True
+    got = f32(_decode_tiles_emulated(qt, kt, vt, torch.from_numpy(valid), D ** -0.5))
+    tol = FLASH_TOL["bfloat16"]
+    plain = f32(decode_attention_plain(qt, kt, vt, torch.from_numpy(valid)))
+    np.testing.assert_allclose(got, plain, atol=tol, rtol=tol)
+    assert np.all(got[0] == 0.0)  # nothing valid: zeros
+    for b in range(1, B):
+        want = ref.decode_attention_ref(qj[b:b + 1], kj[b:b + 1], vj[b:b + 1],
+                                        jnp.asarray(valid[b]))
+        np.testing.assert_allclose(got[b:b + 1], f32(want), atol=tol, rtol=tol)
 
 
 def _paged_inputs(rng, B, H, KV, D, num_pages, page_size, max_pages, zero_row):
