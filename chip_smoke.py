@@ -11,13 +11,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: the four CUDA kernels compiled by nvcc from
    ``src/repro_torch/kernels/csrc``, one nvcc each, all started together;
    each library's count of tensor-core (HMMA) instructions from
-   ``cuobjdump -sass``, which must not be 0 for flash and flat decode;
+   ``cuobjdump -sass``, which must not be 0 for any of the four;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's
    and granite-20b's, the ring prefill's batch-8 window, the flat decode on
    prefix and ring masks, the SSD scan at mamba2-370m's and zamba2-1.2b's),
    with its time, the plain version's, a library call's where one exists,
-   and the bound;
+   and the bound (the scan's both on the tensor cores, which it is held
+   to, and on the float32 CUDA cores); for the paged decode and the scan,
+   each launch's device time (torch.profiler), and for the paged decode its
+   time with one wave of splits;
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
    qwen3-8b, zamba2-1.2b and granite-20b (paged and flat) and mamba2-370m
@@ -58,9 +61,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks by input type
-# (float32 is the CUDA-core rate: TF32 is off here)
+# (float32 is the CUDA-core rate: TF32 is off for PyTorch's matmuls here;
+# tf32 is the tensor cores' rate, which the SSD scan's 3xTF32 products use)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # clock cycles the card spins before a timed run (about 0.1 s at the H100's clocks)
@@ -109,6 +113,30 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(torch, fn, calls: int = 10) -> str:
+    """Device time of one call of ``fn`` by kernel (the launches of a
+    wrapper), from torch.profiler over ``calls`` calls, as "name:ms,...".
+    """
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"::(\w+)[<(]", e.key)
+            name = m.group(1) if m else e.key
+            times[name] = times.get(name, 0.0) + e.self_device_time_total / calls / 1e3
+    return ",".join(f"{k}:{v:.4f}" for k, v in sorted(times.items()))
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -177,6 +205,14 @@ def check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch, max_len, page_siz
     zero_row = got[0].abs().max().item() == 0.0
     nx = rotating(sets)
     ms = cuda_ms(torch, lambda: ops.paged_decode_attention(*nx()), 50)
+    waves, paged_mod.PAGED_WAVES = paged_mod.PAGED_WAVES, 1  # the splits of one wave
+    try:
+        one_wave_ms = cuda_ms(torch, lambda: ops.paged_decode_attention(*nx()), 50)
+    finally:
+        paged_mod.PAGED_WAVES = waves
+    splits = paged_mod.paged_splits(batch, KV, max_pages, page_size,
+                                    paged_mod.sm_count(q.device), dtype)[0]
+    per_launch = launch_ms(torch, lambda: ops.paged_decode_attention(*nx()))
     plain_ms = cuda_ms(torch, lambda: paged_mod.paged_decode_attention_plain(
         *(lambda s: (s[0][:, 0],) + s[1:])(nx())), 5)
     nbytes = (2 * n_tok * KV * D + 2 * batch * H * D) * dbytes + pt.numel() * 4 + batch * 4
@@ -185,9 +221,10 @@ def check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch, max_len, page_siz
     phase("kernels", kernel="paged_decode_attention", config=cfg.name, dtype=name, B=batch,
           H=H, KV=KV,
           D=D, page_size=page_size, lengths=f"{int(lengths.min())}..{int(lengths.max())}",
-          tokens=n_tok, max_abs_err=f"{err:.3e}", ok=ok, zero_len_row_zero=zero_row,
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
-          bound_by=b_by)
+          tokens=n_tok, splits=splits, max_abs_err=f"{err:.3e}", ok=ok,
+          zero_len_row_zero=zero_row, ms=f"{ms:.4f}", one_wave_ms=f"{one_wave_ms:.4f}",
+          per_launch_ms=per_launch,
+          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     if not ok:
         fail(f"paged_decode_attention {name}: max |err| {err:.3e} > {TOL[name]}")
     if not zero_row:
@@ -346,10 +383,15 @@ def check_ssm(torch, ops, ssm_mod, rng, cfg, S):
     nx = rotating(sets)
     ms = cuda_ms(torch, lambda: ops.ssm_scan(*nx(), chunk=L), 20)
     plain_ms = cuda_ms(torch, lambda: ssm_mod.ssm_scan_plain(*nx(), L), 3)
-    b_ms, b_by = bound(nbytes, flops, "float32")
+    per_launch = launch_ms(torch, lambda: ops.ssm_scan(*nx(), chunk=L))
+    # held to the tensor cores, where its products run; the float32 CUDA
+    # cores' bound beside it
+    b_ms, b_by = bound(nbytes, flops, "tf32")
+    cc_ms, cc_by = bound(nbytes, flops, "float32")
     phase("kernels", kernel="ssm_scan", config=cfg.name, dtype="float32", B=B, S=S, H=H, P=P,
           N=N, chunk=L, max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=None, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          cuda_core_bound_ms=f"{cc_ms:.4f}", cuda_core_bound_by=cc_by, per_launch_ms=per_launch,
           gflop=f"{flops / 1e9:.3f}", mb=f"{nbytes / 1e6:.2f}")
     if not ok:
         fail(f"ssm_scan {cfg.name} S={S}: max |err| {err:.3e} > {SCAN_TOL}")
@@ -608,7 +650,7 @@ def main() -> None:
     for name in _build.KERNELS:  # tensor-core instructions in the machine code
         hmma = sum("HMMA" in line for line in _build.sass(name).splitlines())
         phase("sass", kernel=name, hmma=hmma)
-        if hmma == 0 and name in ("flash_attention", "decode_attention"):
+        if hmma == 0:
             fail(f"{name}: no HMMA instruction in its library")
 
     # 3. kernels against their plain versions, at the main paths' shapes -------
@@ -701,7 +743,8 @@ def main() -> None:
                                "ssm_scan": admits * mamba.num_layers})
     counts.append(c)
     profile_prefill(torch, engine, mamba, rng, Request,
-                    {"ssm_scan": ("ssd_scan_kernel", "chunk_cb_kernel"), "matmul": MATMUL_NAMES})
+                    {"ssm_scan": ("chunk_cb", "chunk_state", "state_pass", "chunk_scan"),
+                     "matmul": MATMUL_NAMES})
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -806,7 +849,7 @@ def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
     events = prof.key_averages()
     families, n_kernels = kernel_families(
         events, {"decode_attention": ("decode_split", "decode_merge_kernel"),
-                 "paged_attention": ("paged_decode_kernel",), "matmul": MATMUL_NAMES})
+                 "paged_attention": ("paged_split", "paged_merge"), "matmul": MATMUL_NAMES})
     busy_ms = sum(families.values()) / steps / 1e3
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",

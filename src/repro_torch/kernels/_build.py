@@ -136,10 +136,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, f, i, p]
     elif name == "paged_attention":
         fn = lib.repro_paged_decode_attention
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i64, i64, f, p]
+        fn.argtypes = [p] * 9 + [i] * 9 + [i64, i64, f, p]
     elif name == "ssm_scan":
         fn = lib.repro_ssm_scan
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i64, p]
+        fn.argtypes = [p] * 10 + [i] * 7 + [p, i64, p]
     else:
         raise ValueError(f"unknown kernel {name!r}")
     fn.restype = ctypes.c_int

@@ -60,15 +60,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One 32-token tile of one-query attention, shared by the two decode
-// kernels.  K sits in ks as [32][D + 1] floats (padded: lane j reads row j
-// without bank conflicts), V in vs as [32][D], the query rows in qs as
-// [W * R][D], zero past the G real ones.  A warp owns rows warp + W * i,
-// i < R, and keeps their online-softmax state (m, l, acc) in registers,
-// lane holding output columns lane + 32 * c.  Lane j scores token j,
-// masked where !ok; the K value of a column is read once for all R rows.
-// Every row is computed, padding included, so no branch guards the
-// shuffles: the caller writes out only the real rows.
+// One 32-token tile of one-query attention: the float32 tile of both
+// decode kernels (split_attend_f32 in split_decode.cuh; bf16 runs
+// attend_tile_mma on the tensor cores instead).  K sits in ks as [32][D + 1]
+// floats (padded: lane j reads row j without bank conflicts), V in vs as
+// [32][D], the query rows in qs as [W * R][D], zero past the G real ones.
+// A warp owns rows warp + W * i, i < R, and keeps their online-softmax
+// state (m, l, acc) in registers, lane holding output columns lane + 32 *
+// c.  Lane j scores token j, masked where !ok; the K value of a column is
+// read once for all R rows.  Every row is computed, padding included, so
+// no branch guards the shuffles: the caller writes out only the real rows.
 template <int W, int R, int D>
 __device__ __forceinline__ void attend_tile(const float* qs, const float* ks,
                                             const float* vs, bool ok, float scale,

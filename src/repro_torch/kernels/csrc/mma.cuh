@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by the bf16 attention kernels:
-// cp.async staging, ldmatrix fragment loads, the m16n8k16 bf16 -> f32
-// mma.sync, and one key tile of attention with the online softmax kept in
-// the accumulator fragments (attend_tile_mma).
+// Tensor-core building blocks: for the bf16 attention kernels, cp.async
+// staging, ldmatrix fragment loads, the m16n8k16 bf16 -> f32 mma.sync, and
+// one key tile of attention with the online softmax kept in the
+// accumulator fragments (attend_tile_mma); for the float32 SSD scan, the
+// m16n8k8 tf32 mma.sync in three passes (3xTF32, at the end).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 inputs), for lane
 // l of a warp, g = l / 4 and t = l % 4:
@@ -192,6 +193,89 @@ __device__ __forceinline__ void attend_tile_mma(const uint32_t (&qf)[D / 16][4],
       mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
     }
   }
+}
+
+// -- float32 products on the tensor cores: 3xTF32 --------------------------
+//
+// mma.m16n8k8 with .tf32 inputs, for lane l of a warp, g = l / 4 and
+// t = l % 4 (PTX ISA):
+//   A (16 x 8, row-major), 4 registers of one tf32: a0 = (row g, col t),
+//     a1 = (row g + 8, col t), a2 = (row g, col t + 4), a3 = (row g + 8,
+//     col t + 4);
+//   B (8 x 8, k-major), 2 registers: b0 = (k t, col g), b1 = (k t + 4,
+//     col g);
+//   C/D (16 x 8, f32): as for m16n8k16 above.
+// A tf32 is a float32 whose low 13 mantissa bits the tensor core ignores:
+// 10 of float32's 23 bits (about 3 digits).  Split each float32 operand a
+// into hi = a rounded to a tf32 and lo = a - hi (exact in float32, at most
+// 2^-11 |a|), and sum lo·hi + hi·lo + hi·hi in the float32 accumulator:
+// the tensor core's cut of lo's low bits costs at most 2^-21 |a| and the
+// dropped lo·lo term 2^-22 of the product, so the result keeps about
+// float32's accuracy at three tensor-core products the tile.  The split is
+// integer work (round half away from zero on the bits, then mask) and one
+// subtraction, not conversions, which run at a quarter of the rate.
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d += a * b on the tensor cores: 16x8 tf32 times 8x8 tf32 into 16x8 f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 16 x 8 A operand in hi and lo parts; at(r, k) gives element (r, k).
+struct FragA3 {
+  uint32_t hi[4], lo[4];
+  template <typename At>
+  __device__ __forceinline__ void load(At at, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    split_tf32(at(g, t), hi[0], lo[0]);
+    split_tf32(at(g + 8, t), hi[1], lo[1]);
+    split_tf32(at(g, t + 4), hi[2], lo[2]);
+    split_tf32(at(g + 8, t + 4), hi[3], lo[3]);
+  }
+};
+
+// An 8 x 8 B operand in hi and lo parts; at(k, n) gives element (k, n).
+struct FragB3 {
+  uint32_t hi[2], lo[2];
+  template <typename At>
+  __device__ __forceinline__ void load(At at, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    split_tf32(at(t, g), hi[0], lo[0]);
+    split_tf32(at(t + 4, g), hi[1], lo[1]);
+  }
+};
+
+// d[q] += a * b[q] in about float32 precision for the first n of Q tiles
+// that share the A operand: the small terms first, each term over all n
+// tiles before the next, so two products into one accumulator are n mma
+// apart and the tensor pipe does not wait on its own results.
+template <int Q>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[Q][4], const FragA3& a,
+                                           const FragB3 (&b)[Q], int n) {
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    if (q < n) mma_tf32(d[q], a.lo, b[q].hi[0], b[q].hi[1]);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    if (q < n) mma_tf32(d[q], a.hi, b[q].lo[0], b[q].lo[1]);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    if (q < n) mma_tf32(d[q], a.hi, b[q].hi[0], b[q].hi[1]);
 }
 
 // The sum over the quad of lanes that share a row (the m of a row is

@@ -3,283 +3,463 @@
 // Replaces: src/repro/kernels/ssm_scan.py, ssm_scan_bshp (Pallas body
 // _ssd_kernel).
 //
-// What bounds it on the H100: float32 operations.  Per chunk of L steps,
-// every head does L(L+1)/2 * P multiply-adds for the intra-chunk term and
-// 2 * L * P * N for the inter-chunk term and the state update.  At
-// mamba2-370m's shapes (S = 1024, H = 32, P = 64, N = 128, batch 1) that is
-// about 1.4 GFLOP against about 19 MB read and written once, some 70 flops
-// a byte, far above the 20 flops a byte where the 67 TFLOP/s of the float32
-// CUDA cores meet the 3.35 TB/s of device memory.
+// What bounds it on the H100.  Per chunk of L steps, every head does
+// L(L+1)/2 * P multiply-adds for the intra-chunk term and 2 * L * P * N for
+// the entering state's term and the chunk's own state; C·Bᵀ adds L(L+1)/2 *
+// N a chunk.  At mamba2-370m's shapes (S = 1024, H = 32, P = 64, N = 128,
+// batch 1) that is about 1.4 GFLOP against about 19 MB read and written
+// once: 0.020 ms at the 67 TFLOP/s of the float32 CUDA cores, but 0.0028 ms
+// at the 495 TFLOP/s of TF32 on the tensor cores, under the 0.0057 ms that
+// the bytes take at 3.35 TB/s.  So the products run on the tensor cores,
+// and the kernel is held to the bytes.
 //
-// Design:
-//   * two launches per call.  The first computes C·Bᵀ of every chunk once
-//     (B and C are one group, shared by every head) into an (B, nc, L, L)
-//     scratch of at most 0.5 MB a batch row, which stays in L2.  Computed in
-//     every (head, P-tile) block instead, it would about triple the
-//     arithmetic at mamba2's shapes;
-//   * the second runs one block per (P-tile of 16, SSM head, batch row):
-//     128 blocks for mamba2 and 256 for zamba2 at batch 1.  The block walks
-//     the chunks in order and keeps its N x 16 float32 slice of the state in
-//     shared memory from one chunk to the next.  That loop takes the place
-//     of the Pallas grid's sequential chunk axis and its VMEM scratch;
-//   * per chunk: an inclusive cumsum of dt*A over the L steps (warp
-//     shuffles); then y_i = exp(cs_i) C_i·state (N staged 32 columns at a
-//     time) + sum_{j<=i} W_ij x_j, W_ij = CB_ij exp(cs_i - cs_j) dt_j, with
-//     W built once per (i, j) as CB is staged 32 columns at a time; two
-//     threads a y row, 8 columns each; then
-//     state = exp(cs_L) state + sum_j exp(cs_L - cs_j) dt_j x_j B_jᵀ, each
-//     thread holding a 2 x 4 (p, n) piece of the state in registers while
-//     B streams through in 32-row tiles (two 16-byte-or-less loads per 8
-//     multiply-adds).  Every exponent is clipped to [-60, 0] as in the
-//     reference, so a padded step (dt = 0) leaves the state exactly as it
-//     was;
-//   * staged C and W tiles are padded to 33 floats a row, so the 16 rows a
-//     warp reads lie in different banks; the state is stored n-major, so a
-//     thread's 8 columns are two 16-byte loads;
-//   * float32 on the CUDA cores throughout.  The L x L and L x N products
-//     are matrix products that tensor cores and TMA loads would serve:
-//     later work.
+// Precision: 3xTF32.  Each float32 operand is split into a tf32 hi part and
+// a lo remainder, and lo·hi + hi·lo + hi·hi accumulate in float32
+// (mma_3xtf32, mma.cuh), which keeps about float32's accuracy: one-pass
+// TF32 (about 3 digits) would break the 2e-3 tolerance and put the CPU-card
+// token parity of the float32 smoke configs at risk.  The weights W = CB ⊙
+// decay ⊙ dt and every exponent stay float32 in registers, each exponent
+// clipped to [-60, 0] as in the reference, so a padded step (dt = 0)
+// leaves the state exactly as it was.
+//
+// Design: the chunked SSD split, four launches a call, the plain version's
+// steps (kernels/ssm_scan.py: ssm_scan_plain) in the same order.  The
+// Pallas grid walks the chunks in order with the state in VMEM; blocks
+// that each walked all S / L chunks so would leave the card short of work
+// at batch 1 (one per head and P tile: 128 for mamba2).  Here only the
+// cheap elementwise recurrence walks the chunks; the products run one
+// block per (chunk, head, P tile of 64, batch row): 256 blocks for mamba2
+// and 512 for zamba2 at batch 1, two to an SM;
+//   1. chunk_cb_kernel: C·Bᵀ of every chunk once (B and C are one group,
+//      shared by every head), into an (B, nc, L, L) scratch that stays in
+//      L2.  One block per (16-row tile, chunk, batch row), its 4 warps
+//      sharing the 8-column tiles on and below the diagonal;
+//   2. chunk_state_kernel: each chunk's own end state, states[c] =
+//      Σ_j clip_exp(cs_L - cs_j) dt_j x_jᵀ B_j, a (P x L)·(L x N) product,
+//      the weights applied as x's fragments are read.  One block per
+//      (chunk, head, 64-row P tile, 128-column N tile, batch row), a warp
+//      per 16 P rows and 64 columns, so a thread holds 32 accumulators.  It
+//      also writes cs_L, the chunk's decay exponent;
+//   3. state_pass_kernel: carry <- carry·clip_exp(cs_L) + states[c], one
+//      thread per (batch row, head, p, n) walking the chunks; each chunk's
+//      entering state overwrites its own state in place, and the carry
+//      after the last is the final state;
+//   4. chunk_scan_kernel: y = W·x + (clip_exp(cs) ⊙ C)·enteringᵀ with
+//      W_ij = CB_ij clip_exp(cs_i - cs_j) dt_j for j <= i.  A warp per 16
+//      rows of y; W is built in the warp's A fragments from the CB scratch
+//      (each element once, only up to the warp's diagonal, the next step's
+//      CB in flight meanwhile); x of the chunk is staged whole.
+// Every chunk computes its inclusive cumsum of dt·A itself (warp scans).
+// Tiles move by cp.async, 16 bytes a copy where x, B and C are 16-byte
+// aligned (the model's packed xBC is) and 4 bytes otherwise, 32 columns or
+// steps at a time in two stages, the next in flight while the current one
+// is computed; rows are padded so the fragment loads hit 32 different
+// banks.  Tiles are padded with zeros: any L in 1..128, P a multiple of 16,
+// N a multiple of 4 up to 256.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kThreads = 256;
-constexpr int kMaxL = 128;        // steps per chunk
-constexpr int kMaxN = 256;        // state size
-constexpr int kNT = 32;           // columns of a staged tile
-constexpr int kRow = kNT + 1;     // its padded row
-constexpr int kPT = 16;           // P columns per block
-constexpr int kPer = kPT / 2;     // y columns per thread: two threads a row
+constexpr int kThreads = 256;  // 8 warps (chunk_cb: 4)
+constexpr int kWarps = kThreads / 32;
+constexpr int kCbThreads = 128;
+constexpr int kMaxL = 128;     // steps per chunk
+constexpr int kMaxN = 256;     // state size
+constexpr int kPT = 64;        // P columns per block
+constexpr int kKC = 32;        // state columns or steps staged at a time
+constexpr int kLdK = kKC + 4;  // row of a [rows][kKC] tile read as (row, k): 4 mod 32 banks
+constexpr int kLdP = kPT + 8;  // row of a [steps][kPT] tile read as (k, col): 8 mod 32
 
 __device__ __forceinline__ float clip_exp(float t) {
   return expf(fminf(fmaxf(t, -60.f), 0.f));
 }
 
-// Stage rows [0, rows) and columns [0, cols) of a row-major source (row
-// stride src_rs) into a tile of row stride tile_rs.
-__device__ __forceinline__ void stage(float* tile, int tile_rs, const float* src,
-                                      int64_t src_rs, int rows, int cols) {
-  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-    const int r = e / cols, k = e % cols;
-    tile[r * tile_rs + k] = src[r * src_rs + k];
+// dt of the chunk (steps dt_ss apart) into dts, and the inclusive cumsum of
+// dt·A into cs: warp scans, then the totals of the warps before.
+__device__ __forceinline__ void chunk_cumsum(const float* dt, int64_t dt_ss, float a_h, int L,
+                                             float* cs, float* dts, float* wsum) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const float d = tid < L ? dt[tid * dt_ss] : 0.f;
+  if (tid < L) dts[tid] = d;
+  float v = d * a_h;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(kFullMask, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  if (tid < L) {
+    for (int w = 0; w < warp; ++w) v += wsum[w];
+    cs[tid] = v;
+  }
+  __syncthreads();
+}
+
+// Start copying a tile into shared memory by cp.async, kVec floats a copy
+// (1, or 4 where every source row and column offset is 16-byte aligned):
+// element (r, c) at dst[r * ld + c], for r < rows (at most kRows) and c <
+// cols (at most kCols), is *src(r, c) where ok(r, c) and 0 elsewhere (ok
+// is asked for the first column of each copy; `any` is a valid address
+// that is not read).  The caller commits the group and waits.
+template <int kN, int kRows, int kCols, int kVec, typename Ok, typename Src>
+__device__ __forceinline__ void stage_copies(float* dst, int ld, int rows, int cols,
+                                            const float* any, Ok ok, Src src) {
+  static_assert(kRows * kCols % (kN * kVec) == 0, "whole copies a thread");
+#pragma unroll
+  for (int k = 0; k < kRows * kCols / (kN * kVec); ++k) {
+    const int e = (threadIdx.x + k * kN) * kVec, r = e / kCols, c = e % kCols;
+    if (r < rows && c < cols) {
+      const bool in = ok(r, c);
+      if (kVec == 4)
+        cp_async_16(dst + r * ld + c, in ? src(r, c) : any, in);
+      else
+        cp_async_4(dst + r * ld + c, in ? src(r, c) : any, in);
+    }
   }
 }
 
-// cb[b, c, i, j] = sum_n C[b, c*L + i, n] * B[b, c*L + j, n]: one block per
-// (chunk, batch row), each thread an 8 x 8 grid of (i, j) outputs.
-__global__ void __launch_bounds__(kThreads)
-chunk_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
-                float* __restrict__ cb, int N, int L, int64_t b_sb, int64_t b_ss,
-                int64_t c_sb, int64_t c_ss) {
-  __shared__ float ct[kMaxL * kRow];
-  __shared__ float bt[kMaxL * kRow];
-  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t t0 = static_cast<int64_t>(c) * L;
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[a][q] = 0.f;
+// The same, 16 bytes a copy where `vec`, else 4.
+template <int kN, int kRows, int kCols, typename Ok, typename Src>
+__device__ __forceinline__ void stage_async(bool vec, float* dst, int ld, int rows, int cols,
+                                            const float* any, Ok ok, Src src) {
+  if (vec)
+    stage_copies<kN, kRows, kCols, 4>(dst, ld, rows, cols, any, ok, src);
+  else
+    stage_copies<kN, kRows, kCols, 1>(dst, ld, rows, cols, any, ok, src);
+}
 
-  for (int n0 = 0; n0 < N; n0 += kNT) {
-    const int kt = min(kNT, N - n0);
-    stage(ct, kRow, Cm + b * c_sb + t0 * c_ss + n0, c_ss, L, kt);
-    stage(bt, kRow, Bm + b * b_sb + t0 * b_ss + n0, b_ss, L, kt);
-    __syncthreads();
-    for (int k = 0; k < kt; ++k) {
-      float cv[8], bv[8];
+// 1. cb[b, c, i, j] = sum_n C[b, c*L + i, n] * B[b, c*L + j, n] for the
+// rows i of one 16-row tile and the 8-column tiles j up to its diagonal:
+// one block per (row tile, chunk, batch row), warp w the tiles w, w + 4,
+// ...  C's 16 rows and B's rows are staged 32 state columns at a time.
+__global__ void __launch_bounds__(kCbThreads)
+chunk_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+                float* __restrict__ cb, int N, int L, bool vec, int64_t b_sb, int64_t b_ss,
+                int64_t c_sb, int64_t c_ss) {
+  __shared__ __align__(16) float ct[2][16 * kLdK];     // C rows of the tile
+  __shared__ __align__(16) float bt[2][kMaxL * kLdK];  // B rows up to the diagonal
+  const int rt = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const int i0 = 16 * rt;
+  const int nw = min(2 * (rt + 1), (L + 7) / 8);  // 8-column tiles up to the diagonal
+  const int jrows = 8 * nw;
+  const int64_t t0 = static_cast<int64_t>(c) * L;
+  const float* cg = Cm + b * c_sb + t0 * c_ss;
+  const float* bg = Bm + b * b_sb + t0 * b_ss;
+  const int mine = (nw - w + 3) / 4;  // this warp's tiles: w + 4q, q < mine
+
+  auto issue = [&](int stage, int n0) {
+    stage_async<kCbThreads, 16, kKC>(vec, ct[stage], kLdK, 16, kKC, cg,
+        [&](int r, int k) { return i0 + r < L && n0 + k < N; },
+        [&](int r, int k) { return cg + (i0 + r) * c_ss + n0 + k; });
+    stage_async<kCbThreads, kMaxL, kKC>(vec, bt[stage], kLdK, jrows, kKC, bg,
+        [&](int r, int k) { return r < L && n0 + k < N; },
+        [&](int r, int k) { return bg + r * b_ss + n0 + k; });
+  };
+
+  float acc[4][4];
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int i = ty + 16 * a;
-        cv[a] = i < L ? ct[i * kRow + k] : 0.f;
-      }
+  for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+  issue(0, 0);
+  cp_async_commit();
+  for (int n0 = 0, s = 0; n0 < N; n0 += kKC, s ^= 1) {
+    if (n0 + kKC < N) issue(s ^ 1, n0 + kKC);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage has landed for every thread
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int j = tx + 16 * q;
-        bv[q] = j < L ? bt[j * kRow + k] : 0.f;
-      }
+    for (int kk = 0; kk < kKC; kk += 8) {
+      FragA3 a;
+      a.load([&](int r, int k) { return ct[s][r * kLdK + kk + k]; }, lane);
+      FragB3 bf[4];
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[a][q] += cv[a] * bv[q];
+      for (int q = 0; q < 4; ++q)
+        if (q < mine)
+          bf[q].load([&](int k, int n) { return bt[s][(8 * (w + 4 * q) + n) * kLdK + kk + k]; },
+                     lane);
+      mma_3xtf32(acc, a, bf, mine);
     }
-    __syncthreads();
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
   float* out = cb + (static_cast<int64_t>(b) * nc + c) * L * L;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int q = 0; q < 4; ++q) {
+    if (q >= mine) break;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int i = ty + 16 * a, j = tx + 16 * q;
-      if (i < L && j < L) out[i * L + j] = acc[a][q];
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1), j = 8 * (w + 4 * q) + 2 * t + (e & 1);
+      if (i < L && j < L) out[i * L + j] = acc[q][e];
     }
+  }
 }
 
-// The state update's micro-tiles: 2 P columns x 4 state columns a thread.
-constexpr int kMaxMT = (kPT / 2) * (kMaxN / 4) / kThreads;  // per thread, at most
+constexpr int kNT = 128;  // state columns per chunk_state block
+constexpr int kLdN = kNT + 8;  // row of a [steps][kNT] tile read as (k, col): 8 mod 32
 
-__host__ __device__ __forceinline__ int tile_floats(int N, int L) {
-  return L * kRow > kNT * (N + 4) ? L * kRow : kNT * (N + 4);
+size_t state_smem_bytes() {
+  return sizeof(float) * (2 * kMaxL + 8 + kWarps + 2 * kKC * kLdP + 2 * kKC * kLdN);
 }
 
-size_t scan_smem_bytes(int N, int L) {
-  return sizeof(float) * (N * kPT + L * kPT + tile_floats(N, L) + 2 * L + kThreads / 32);
-}
+// 2. states[b, c, h, p, n] = sum_j clip_exp(cs_L - cs_j) dt_j x[j, h, p]
+// B[j, n] over the chunk's steps j; decay[b, c, h] = cs_L.  One block per
+// (chunk, head and 64-row P tile and 128-column N tile, batch row); warp w
+// the P rows 16 (w % 4).. and the columns 64 (w / 4)..
+__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM
+chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   float* __restrict__ states, float* __restrict__ decay, int H, int P, int N,
+                   int L, bool vec, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb,
+                   int64_t dt_ss, int64_t b_sb, int64_t b_ss) {
+  extern __shared__ float4 smem_state[];  // float4: 16-byte alignment
+  float* cs = reinterpret_cast<float*>(smem_state);  // [kMaxL]
+  float* wt = cs + kMaxL;                             // [kMaxL + 8] dt, then the weights
+  float* wsum = wt + kMaxL + 8;                       // [kWarps]
+  float* xs = wsum + kWarps;                          // [2][kKC][kPT] of x
+  float* bs = xs + 2 * kKC * kLdP;                    // [2][kKC][kNT] of B
+  const int ptiles = (P + kPT - 1) / kPT, ntiles = (N + kNT - 1) / kNT;
+  const int c = blockIdx.x, b = blockIdx.z, nc = gridDim.x;
+  const int h = blockIdx.y / (ptiles * ntiles);
+  const int pt = blockIdx.y / ntiles % ptiles, ntile = blockIdx.y % ntiles;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const int p0 = pt * kPT, pw = min(kPT, P - p0);
+  const int n0 = ntile * kNT, nw = min(kNT, N - n0);
+  const int64_t t0 = static_cast<int64_t>(c) * L;
+  const float* xg = x + b * x_sb + t0 * x_ss + h * x_sh + p0;
+  const float* bg = Bm + b * b_sb + t0 * b_ss + n0;
 
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ cb,
-                float* __restrict__ y, float* __restrict__ fin, int S, int H, int P, int N,
-                int L, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb,
-                int64_t dt_ss, int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss) {
-  extern __shared__ float4 smem4[];  // float4: 16-byte alignment for the vector reads
-  float* st = reinterpret_cast<float*>(smem4);  // [N][kPT] state slice, n-major
-  float* xs = st + N * kPT;                     // [L][kPT] x of the chunk, then weighted
-  float* tile = xs + L * kPT;                   // [L][kRow] staged C or W, [kNT][N+4] B
-  float* cs = tile + tile_floats(N, L);         // [L] inclusive cumsum of dt*A
-  float* dts = cs + L;                          // [L]
-  float* wsum = dts + L;                        // [kThreads / 32] warp totals of the scan
+  auto issue = [&](int stage, int j0) {
+    stage_async<kThreads, kKC, kPT>(vec, xs + stage * kKC * kLdP, kLdP, kKC, kPT, xg,
+        [&](int j, int p) { return j0 + j < L && p < pw; },
+        [&](int j, int p) { return xg + (j0 + j) * x_ss + p; });
+    stage_async<kThreads, kKC, kNT>(vec, bs + stage * kKC * kLdN, kLdN, kKC, kNT, bg,
+        [&](int j, int n) { return j0 + j < L && n < nw; },
+        [&](int j, int n) { return bg + (j0 + j) * b_ss + n; });
+  };
+  issue(0, 0);
+  cp_async_commit();
 
-  const int p0 = blockIdx.x * kPT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int row = tid / 2, half = (tid % 2) * kPer;  // the y row and 8 columns a thread owns
-  const bool active = row < L;
-  const float a_h = A[h];
-  const int nc = S / L;
-  for (int e = tid; e < N * kPT; e += kThreads) st[e] = 0.f;
+  chunk_cumsum(dt + b * dt_sb + t0 * dt_ss + h, dt_ss, A[h], L, cs, wt, wsum);
+  const float cl = cs[L - 1];
+  if (tid < L)
+    wt[tid] *= clip_exp(cl - cs[tid]);  // the step's weight in the state
+  else if (tid < kMaxL + 8)
+    wt[tid] = 0.f;  // past the chunk: read beside zero-filled x, so never NaN
+  if (tid == 0 && pt == 0 && ntile == 0) decay[(static_cast<int64_t>(b) * nc + c) * H + h] = cl;
 
-  for (int c = 0; c < nc; ++c) {
-    const int64_t t0 = static_cast<int64_t>(c) * L;
-    // 1. stage dt and x of the chunk (the previous chunk's readers are done)
-    for (int e = tid; e < L; e += kThreads) dts[e] = dt[b * dt_sb + (t0 + e) * dt_ss + h];
-    for (int e = tid; e < L * kPT; e += kThreads) {
-      const int j = e / kPT, p = e % kPT;
-      xs[e] = x[b * x_sb + (t0 + j) * x_ss + h * x_sh + p0 + p];
-    }
-    __syncthreads();
-
-    // 2. inclusive cumsum of dt*A: warp scans, then the totals of the warps before
-    {
-      float v = tid < L ? dts[tid] * a_h : 0.f;
+  const int rt = w % 4, c0 = 64 * (w / 4);  // the warp's 16 P rows and 64 columns
+  const bool active = 16 * rt < pw && c0 < nw;
+  const int nq = min(8, (nw - c0 + 7) / 8);  // its 8-column tiles
+  float acc[8][4];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(kFullMask, v, o);
-        if (lane >= o) v += u;
-      }
-      if (lane == 31) wsum[warp] = v;
-      __syncthreads();
-      if (tid < L) {
-        for (int w = 0; w < warp; ++w) v += wsum[w];
-        cs[tid] = v;
-      }
-      __syncthreads();
-    }
+  for (int q = 0; q < 8; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
 
-    // 3. y of the chunk: the entering state's term, then the intra-chunk term
-    float acc[kPer];
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) acc[q] = 0.f;
-    for (int n0 = 0; n0 < N; n0 += kNT) {
-      const int kt = min(kNT, N - n0);
-      stage(tile, kRow, Cm + b * c_sb + t0 * c_ss + n0, c_ss, L, kt);
-      __syncthreads();
-      if (active) {
-        for (int k = 0; k < kt; ++k) {
-          const float cv = tile[row * kRow + k];
-          const float4* s4 = reinterpret_cast<const float4*>(st + (n0 + k) * kPT + half);
-          const float4 s0 = s4[0], s1 = s4[1];
-          acc[0] += cv * s0.x; acc[1] += cv * s0.y; acc[2] += cv * s0.z; acc[3] += cv * s0.w;
-          acc[4] += cv * s1.x; acc[5] += cv * s1.y; acc[6] += cv * s1.z; acc[7] += cv * s1.w;
-        }
-      }
-      __syncthreads();
-    }
-    const float cs_i = active ? cs[row] : 0.f;
-    const float e_i = clip_exp(cs_i);
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) acc[q] *= e_i;
-
-    const float* cbc = cb + ((static_cast<int64_t>(b) * nc + c) * L) * L;
-    for (int j0 = 0; j0 < L; j0 += kNT) {
-      const int kt = min(kNT, L - j0);
-      // W_ij = CB_ij exp(cs_i - cs_j) dt_j for j <= i, each pair once
-      for (int e = tid; e < L * kt; e += kThreads) {
-        const int r = e / kt, k = e % kt, j = j0 + k;
-        tile[r * kRow + k] = j <= r ? cbc[r * L + j] * clip_exp(cs[r] - cs[j]) * dts[j] : 0.f;
-      }
-      __syncthreads();
-      if (active) {
-        const int kend = min(kt, row - j0 + 1);  // j <= i only
-        for (int k = 0; k < kend; ++k) {
-          const float w = tile[row * kRow + k];
-          const int j = j0 + k;
-          const float4* x4 = reinterpret_cast<const float4*>(xs + j * kPT + half);
-          const float4 x0 = x4[0], x1 = x4[1];
-          acc[0] += w * x0.x; acc[1] += w * x0.y; acc[2] += w * x0.z; acc[3] += w * x0.w;
-          acc[4] += w * x1.x; acc[5] += w * x1.y; acc[6] += w * x1.z; acc[7] += w * x1.w;
-        }
-      }
-      __syncthreads();
-    }
+  for (int j0 = 0, s = 0; j0 < L; j0 += kKC, s ^= 1) {
+    if (j0 + kKC < L) issue(s ^ 1, j0 + kKC);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage has landed (and the weights are in wt)
+    const float* xt = xs + s * kKC * kLdP;
+    const float* bt = bs + s * kKC * kLdN;
     if (active) {
-      float4* y4 = reinterpret_cast<float4*>(
-          y + ((static_cast<int64_t>(b) * S + t0 + row) * H + h) * P + p0 + half);
-      y4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      y4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-    }
-
-    // 4. state update: weight x by exp(cs_L - cs_j) dt_j in place, then
-    //    state = exp(cs_L) state + xwᵀ B, B streamed in tiles of kNT rows
-    const float cl = cs[L - 1];
-    const float decay = clip_exp(cl);
-    if (tid < L) dts[tid] *= clip_exp(cl - cs[tid]);  // dt is not read again this chunk
-    __syncthreads();
-    for (int e = tid; e < L * kPT; e += kThreads) xs[e] *= dts[e / kPT];
-    const int n_mt = (kPT / 2) * (N / 4);  // micro-tiles: 2 p x 4 n each
-    float sacc[kMaxMT][8];
 #pragma unroll
-    for (int r = 0; r < kMaxMT; ++r) {
-      const int m = tid + r * kThreads, pp = (m % (kPT / 2)) * 2, nn = (m / (kPT / 2)) * 4;
+      for (int kk = 0; kk < kKC; kk += 8) {
+        if (j0 + kk >= L) break;
+        FragA3 a;  // (p, j) = weight_j x[j][p]
+        a.load([&](int r, int k) { return xt[(kk + k) * kLdP + 16 * rt + r] * wt[j0 + kk + k]; },
+               lane);
+        FragB3 bf[8];  // (j, n) = B[j][n]
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        sacc[r][q] = m < n_mt ? st[(nn + q / 2) * kPT + pp + q % 2] * decay : 0.f;
-    }
-    for (int j0 = 0; j0 < L; j0 += kNT) {
-      const int rows = min(kNT, L - j0);
-      __syncthreads();  // xs is weighted; the previous tile is consumed
-      stage(tile, N + 4, Bm + b * b_sb + (t0 + j0) * b_ss, b_ss, rows, N);
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kMaxMT; ++r) {
-        const int m = tid + r * kThreads, pp = (m % (kPT / 2)) * 2, nn = (m / (kPT / 2)) * 4;
-        if (m >= n_mt) continue;
-        for (int j = 0; j < rows; ++j) {
-          const float2 xv = *reinterpret_cast<const float2*>(xs + (j0 + j) * kPT + pp);
-          const float4 bv = *reinterpret_cast<const float4*>(tile + j * (N + 4) + nn);
-          sacc[r][0] += xv.x * bv.x; sacc[r][1] += xv.y * bv.x;
-          sacc[r][2] += xv.x * bv.y; sacc[r][3] += xv.y * bv.y;
-          sacc[r][4] += xv.x * bv.z; sacc[r][5] += xv.y * bv.z;
-          sacc[r][6] += xv.x * bv.w; sacc[r][7] += xv.y * bv.w;
-        }
+        for (int q = 0; q < 8; ++q)
+          if (q < nq)
+            bf[q].load([&](int k, int n) { return bt[(kk + k) * kLdN + c0 + 8 * q + n]; }, lane);
+        mma_3xtf32(acc, a, bf, nq);
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  if (!active) return;
+  const int g = lane >> 2, t = lane & 3;
+  float* out = states + ((static_cast<int64_t>(b) * nc + c) * H + h) * P * N;
 #pragma unroll
-    for (int r = 0; r < kMaxMT; ++r) {
-      const int m = tid + r * kThreads, pp = (m % (kPT / 2)) * 2, nn = (m / (kPT / 2)) * 4;
-      if (m >= n_mt) continue;
+  for (int q = 0; q < 8; ++q) {
+    const int n = n0 + c0 + 8 * q + 2 * t;
+    if (q >= nq || n >= N) continue;  // N is a multiple of 4, so n + 1 < N too
 #pragma unroll
-      for (int q = 0; q < 8; ++q) st[(nn + q / 2) * kPT + pp + q % 2] = sacc[r][q];
+    for (int r = 0; r < 2; ++r) {
+      const int p = p0 + 16 * rt + g + 8 * r;
+      *reinterpret_cast<float2*>(out + static_cast<int64_t>(p) * N + n) =
+          make_float2(acc[q][2 * r], acc[q][2 * r + 1]);
     }
-    __syncthreads();  // the state is whole before the next chunk reads it
+  }
+}
+
+// 3. The carried recurrence along the chunks, one thread per (batch row,
+// head, p, n): each chunk's state is replaced by the state entering it, and
+// the state after the last chunk is the final state.
+__global__ void __launch_bounds__(kThreads)
+state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
+                  float* __restrict__ fin, int B, int nc, int H, int PN) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t per_row = static_cast<int64_t>(H) * PN;
+  if (e >= B * per_row) return;
+  const int64_t b = e / per_row, hpn = e % per_row;
+  const int h = static_cast<int>(hpn / PN);
+  // the loads of 8 chunks at a time are in flight together
+  constexpr int kBatch = 8;
+  float carry = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kBatch) {
+    float own[kBatch], dec[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 + k >= nc) break;
+      own[k] = states[(b * nc + c0 + k) * per_row + hpn];
+      dec[k] = decay[(b * nc + c0 + k) * H + h];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 + k >= nc) break;
+      states[(b * nc + c0 + k) * per_row + hpn] = carry;
+      carry = carry * clip_exp(dec[k]) + own[k];
+    }
+  }
+  fin[e] = carry;
+}
+
+size_t scan_smem_bytes() {
+  return sizeof(float) * (2 * kMaxL + kWarps + kMaxL * kLdP + 2 * (kMaxL + kPT) * kLdK);
+}
+
+// 4. y of the chunk: one block per (chunk, head and P tile, batch row); warp
+// w the rows 16w..16w+15 over the tile's P columns.
+__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM
+chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const float* __restrict__ Cm,
+                  const float* __restrict__ cb, const float* __restrict__ states,
+                  float* __restrict__ y, int S, int H, int P, int N, int L, bool vec,
+                  int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss,
+                  int64_t c_sb, int64_t c_ss) {
+  extern __shared__ float4 smem_scan[];  // float4: 16-byte alignment
+  float* cs = reinterpret_cast<float*>(smem_scan);  // [kMaxL]
+  float* dts = cs + kMaxL;                           // [kMaxL]
+  float* wsum = dts + kMaxL;                         // [kWarps]
+  float* xs = wsum + kWarps;                         // [Lp][kPT] of x
+  float* ct = xs + kMaxL * kLdP;                     // [2][Lp][kKC] of C
+  float* st = ct + 2 * kMaxL * kLdK;                 // [2][kPT][kKC] of the entering state
+  const int ptiles = (P + kPT - 1) / kPT;
+  const int c = blockIdx.x, h = blockIdx.y / ptiles, pt = blockIdx.y % ptiles;
+  const int b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const int p0 = pt * kPT, pw = min(kPT, P - p0);
+  const int nq = pw / 8;  // 8-column tiles of the P tile
+  const int Lp = (L + 15) / 16 * 16;
+  const int64_t t0 = static_cast<int64_t>(c) * L;
+  const float* xg = x + b * x_sb + t0 * x_ss + h * x_sh + p0;
+  const float* cg = Cm + b * c_sb + t0 * c_ss;
+  const float* sg = states + ((static_cast<int64_t>(b) * nc + c) * H + h) * P * N +
+                    static_cast<int64_t>(p0) * N;
+  const float* cbc = cb + (static_cast<int64_t>(b) * nc + c) * L * L;
+
+  auto issue = [&](int stage, int n0) {
+    stage_async<kThreads, kMaxL, kKC>(vec, ct + stage * kMaxL * kLdK, kLdK, Lp, kKC, cg,
+        [&](int r, int k) { return r < L && n0 + k < N; },
+        [&](int r, int k) { return cg + r * c_ss + n0 + k; });
+    stage_copies<kThreads, kPT, kKC, 4>(st + stage * kPT * kLdK, kLdK, kPT, kKC, sg,
+        [&](int p, int k) { return p < pw && n0 + k < N; },
+        [&](int p, int k) { return sg + static_cast<int64_t>(p) * N + n0 + k; });
+  };
+  stage_async<kThreads, kMaxL, kPT>(vec, xs, kLdP, Lp, kPT, xg,
+      [&](int j, int p) { return j < L && p < pw; },
+      [&](int j, int p) { return xg + j * x_ss + p; });
+  cp_async_commit();
+  issue(0, 0);
+  cp_async_commit();
+  chunk_cumsum(dt + b * dt_sb + t0 * dt_ss + h, dt_ss, A[h], L, cs, dts, wsum);
+  cp_async_wait<1>();  // x has landed
+  __syncthreads();
+
+  const bool active = 16 * w < L;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[kPT / 8][4];
+#pragma unroll
+  for (int q = 0; q < kPT / 8; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+
+  // the intra-chunk term, W·x, over the steps j < 16 (w + 1); W is built in
+  // the A fragment from CB, whose next step is in flight meanwhile
+  if (active) {
+    const int i0 = 16 * w, kend = min(i0 + 16, L);
+    // CB at the fragment's elements of step kk: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+    auto load_cb = [&](int kk, float (&v)[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e & 1), j = kk + t + 4 * (e >> 1);
+        v[e] = j <= i && i < L ? cbc[i * L + j] : 0.f;
+      }
+    };
+    float cur[4], nxt[4] = {0.f, 0.f, 0.f, 0.f};
+    load_cb(0, cur);
+    for (int kk = 0; kk < kend; kk += 8) {
+      if (kk + 8 < kend) load_cb(kk + 8, nxt);
+      FragA3 a;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e & 1), j = kk + t + 4 * (e >> 1);
+        const float wv = j <= i && i < L ? cur[e] * clip_exp(cs[i] - cs[j]) * dts[j] : 0.f;
+        split_tf32(wv, a.hi[e], a.lo[e]);
+        cur[e] = nxt[e];
+      }
+      FragB3 bf[kPT / 8];  // (j, p) = x[j][p]
+#pragma unroll
+      for (int q = 0; q < kPT / 8; ++q)
+        if (q < nq) bf[q].load([&](int k, int n) { return xs[(kk + k) * kLdP + 8 * q + n]; }, lane);
+      mma_3xtf32(acc, a, bf, nq);
+    }
   }
 
-  for (int e = tid; e < kPT * N; e += kThreads) {
-    const int p = e / N, n = e % N;
-    fin[((static_cast<int64_t>(b) * H + h) * P + p0 + p) * N + n] = st[n * kPT + p];
+  // the entering state's term, (clip_exp(cs) C)·enteringᵀ, 32 columns of N
+  // at a time; the rows' factors clip_exp(cs_i) applied as C is read
+  const float e0 = active && 16 * w + g < L ? clip_exp(cs[16 * w + g]) : 0.f;
+  const float e1 = active && 16 * w + g + 8 < L ? clip_exp(cs[16 * w + g + 8]) : 0.f;
+  for (int n0 = 0, s = 0; n0 < N; n0 += kKC, s ^= 1) {
+    if (n0 + kKC < N) issue(s ^ 1, n0 + kKC);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage has landed for every thread
+    const float* cts = ct + s * kMaxL * kLdK;
+    const float* sts = st + s * kPT * kLdK;
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < kKC; kk += 8) {
+        FragA3 a;
+        a.load([&](int r, int k) {
+          return cts[(16 * w + r) * kLdK + kk + k] * (r < 8 ? e0 : e1);
+        }, lane);
+        FragB3 bf[kPT / 8];  // (n, p) = entering[p][n]
+#pragma unroll
+        for (int q = 0; q < kPT / 8; ++q)
+          if (q < nq)
+            bf[q].load([&](int k, int n) { return sts[(8 * q + n) * kLdK + kk + k]; }, lane);
+        mma_3xtf32(acc, a, bf, nq);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = 16 * w + g + 8 * r;
+    if (i >= L) continue;
+    float* yrow = y + ((static_cast<int64_t>(b) * S + t0 + i) * H + h) * P + p0;
+#pragma unroll
+    for (int q = 0; q < kPT / 8; ++q) {
+      if (q >= nq) break;
+      *reinterpret_cast<float2*>(yrow + 8 * q + 2 * t) =
+          make_float2(acc[q][2 * r], acc[q][2 * r + 1]);
+    }
   }
 }
 
@@ -288,32 +468,55 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 // x (B, S, H, P), dt (B, S, H), B/C (B, S, N): float32, contiguous last
 // axis, other strides in `strides` as (batch, seq) pairs of x, dt, B, C,
 // plus x's head stride x_sh; A (H,) contiguous; y (B, S, H, P) and fin
-// (B, H, P, N) contiguous; cb scratch of B * (S / L) * L * L floats.
+// (B, H, P, N) contiguous; scratch: cb of B * nc * L * L floats, states of
+// B * nc * H * P * N and decay of B * nc * H, nc = S / L.  `aligned`: x, B
+// and C start on 16-byte boundaries and their batch, seq (and x's head)
+// strides are multiples of 4, so their rows move 16 bytes a copy.
 // Returns cudaGetLastError().
 extern "C" int repro_ssm_scan(const void* x, const void* dt, const void* A, const void* Bm,
-                              const void* Cm, void* y, void* fin, void* cb, int B, int S,
-                              int H, int P, int N, int L, const int64_t* strides,
-                              int64_t x_sh, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % kPT != 0 || N <= 0 || N > kMaxN ||
+                              const void* Cm, void* y, void* fin, void* cb, void* states,
+                              void* decay, int B, int S, int H, int P, int N, int L,
+                              int aligned, const int64_t* strides, int64_t x_sh,
+                              void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % 16 != 0 || N <= 0 || N > kMaxN ||
       N % 4 != 0 || L <= 0 || L > kMaxL || S % L != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t x_sb = strides[0], x_ss = strides[1], dt_sb = strides[2], dt_ss = strides[3];
   const int64_t b_sb = strides[4], b_ss = strides[5], c_sb = strides[6], c_ss = strides[7];
   const int nc = S / L;
-  chunk_cb_kernel<<<dim3(nc, B), kThreads, 0, s>>>(
-      static_cast<const float*>(Bm), static_cast<const float*>(Cm), static_cast<float*>(cb), N,
-      L, b_sb, b_ss, c_sb, c_ss);
+  const int ptiles = (P + kPT - 1) / kPT, ntiles = (N + kNT - 1) / kNT;
+  const bool vec = aligned != 0;
+  const auto* xf = static_cast<const float*>(x);
+  const auto* dtf = static_cast<const float*>(dt);
+  const auto* Af = static_cast<const float*>(A);
+  auto* cbf = static_cast<float*>(cb);
+  auto* st = static_cast<float*>(states);
+  auto* dec = static_cast<float*>(decay);
+
+  chunk_cb_kernel<<<dim3((L + 15) / 16, nc, B), kCbThreads, 0, s>>>(
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm), cbf, N, L, vec, b_sb, b_ss,
+      c_sb, c_ss);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = scan_smem_bytes(N, L);
-  err = allow_smem(ssd_scan_kernel, smem);
+  size_t smem = state_smem_bytes();
+  err = allow_smem(chunk_state_kernel, smem);
   if (err != cudaSuccess) return err;
-  ssd_scan_kernel<<<dim3(P / kPT, H, B), kThreads, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<const float*>(cb), static_cast<float*>(y),
-      static_cast<float*>(fin), S, H, P, N, L, x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss,
-      c_sb, c_ss);
+  chunk_state_kernel<<<dim3(nc, H * ptiles * ntiles, B), kThreads, smem, s>>>(
+      xf, dtf, Af, static_cast<const float*>(Bm), st, dec, H, P, N, L, vec, x_sb, x_ss, x_sh,
+      dt_sb, dt_ss, b_sb, b_ss);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t elems = static_cast<int64_t>(B) * H * P * N;
+  state_pass_kernel<<<static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+                      s>>>(st, dec, static_cast<float*>(fin), B, nc, H, P * N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = scan_smem_bytes();
+  err = allow_smem(chunk_scan_kernel, smem);
+  if (err != cudaSuccess) return err;
+  chunk_scan_kernel<<<dim3(nc, H * ptiles, B), kThreads, smem, s>>>(
+      xf, dtf, Af, static_cast<const float*>(Cm), cbf, st, static_cast<float*>(y), S, H, P, N,
+      L, vec, x_sb, x_ss, x_sh, dt_sb, dt_ss, c_sb, c_ss);
   return cudaGetLastError();
 }

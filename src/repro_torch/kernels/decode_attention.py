@@ -68,7 +68,8 @@ def splits_for(B: int, KV: int, S: int, sm_count: int, tile: int = TILE) -> Tupl
 _SM_COUNT = {}
 
 
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
     if device not in _SM_COUNT:
         _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return _SM_COUNT[device]
@@ -114,7 +115,7 @@ def launch(
         if not _build.rows_aligned(t, 16):
             raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
     tile = MMA_TILE if q.dtype == torch.bfloat16 else TILE
-    splits, split_len = splits_for(B, KV, S, _sm_count(q.device), tile)
+    splits, split_len = splits_for(B, KV, S, sm_count(q.device), tile)
     part_m = torch.empty((B, H, splits), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B, H, splits, D), dtype=torch.float32, device=q.device)

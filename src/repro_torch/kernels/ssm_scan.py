@@ -5,7 +5,10 @@ The kernel (``csrc/ssm_scan.cu``) replaces the Pallas ``ssm_scan_bshp``:
 within each chunk of ``L`` steps the quadratic term
 ``(C·Bᵀ ⊙ exp(segsum(dt·A)) ⊙ dt)·x``, plus the term of the state entering
 the chunk, ``exp(cumsum(dt·A)) · C·state``; the float32 ``(H, P, N)`` state
-is carried across chunks, and every exponent is clipped to [-60, 0].
+is carried across chunks, and every exponent is clipped to [-60, 0].  It
+runs the plain version's steps as four launches (C·Bᵀ of every chunk, each
+chunk's own state, the carried recurrence over the chunks, then y), the
+products on the tensor cores in 3xTF32, which keeps float32 accuracy.
 
 Layouts (the reference kernel's), all float32:
   x      : (B, S, H, P), any batch/seq/head strides, contiguous P
@@ -24,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_CHUNK = 128  # steps per chunk the kernel stages in shared memory
-P_TILE = 16  # head-dim columns per block
+P_MULTIPLE = 16  # the head dim is a whole number of 16-row tensor-core tiles
 MAX_STATE = 256  # state size N the kernel's shared-memory budget holds
 
 
@@ -92,7 +95,7 @@ def launch(
     y: torch.Tensor,  # (B, S, H, P) contiguous float32, written
     final: torch.Tensor,  # (B, H, P, N) contiguous float32, written
 ) -> None:
-    """Launch the CUDA kernel on x's current stream; raises on bad input or
+    """Launch the CUDA kernels on x's current stream; raises on bad input or
     a refused launch."""
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
@@ -119,17 +122,25 @@ def launch(
         raise ValueError(f"ssm_scan: empty input x{tuple(x.shape)}")
     if not 1 <= chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"ssm_scan: chunk {chunk} must divide S={S} and lie in 1..{MAX_CHUNK}")
-    if P < 1 or P % P_TILE:
-        raise ValueError(f"ssm_scan: head dim {P} is not a multiple of {P_TILE}")
+    if P < 1 or P % P_MULTIPLE:
+        raise ValueError(f"ssm_scan: head dim {P} is not a multiple of {P_MULTIPLE}")
     if not 1 <= N <= MAX_STATE or N % 4:
         raise ValueError(f"ssm_scan: state size {N} is not a multiple of 4 in 4..{MAX_STATE}")
-    cb = torch.empty((Bb, S // chunk, chunk, chunk), dtype=torch.float32, device=x.device)
+    nc = S // chunk
+    # scratch, L2-resident at the models' shapes: C·Bᵀ of each chunk, each
+    # chunk's state (then the state entering it), each chunk's cumsum of dt·A
+    cb = torch.empty((Bb, nc, chunk, chunk), dtype=torch.float32, device=x.device)
+    states = torch.empty((Bb, nc, H, P, N), dtype=torch.float32, device=x.device)
+    decay = torch.empty((Bb, nc, H), dtype=torch.float32, device=x.device)
     fn = _build.load("ssm_scan").repro_ssm_scan
     # (batch, seq) strides of x, dt, B_, C_; x's head stride on its own
     strides = _build.strides_arg([x, dt, B_, C_], (0, 1))
+    # rows that start on 16-byte boundaries move 16 bytes a copy
+    aligned = all(_build.rows_aligned(t, 16) for t in (x, B_, C_))
     rc = fn(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-        y.data_ptr(), final.data_ptr(), cb.data_ptr(), Bb, S, H, P, N, chunk,
-        strides, x.stride(2), _build.stream_handle(x.device),
+        y.data_ptr(), final.data_ptr(), cb.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        Bb, S, H, P, N, chunk, int(aligned), strides, x.stride(2),
+        _build.stream_handle(x.device),
     )
     _build.check(rc, "ssm_scan")

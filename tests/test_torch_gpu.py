@@ -85,30 +85,49 @@ def test_flash_kernel_reads_q_rows_that_are_not_16_byte_aligned(cuda):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+def _split_edge_lengths(B, max_pages, page_size, split_len):
+    """Lengths at the edges of the kernel's splits: an idle slot, one that
+    ends on a split edge and one just past it, one token (every later split
+    past the length), a full table, and ones just short of an edge."""
+    S = max_pages * page_size
+    want = [0, split_len, split_len + 1, 1, S, 2 * split_len - 1, 3 * split_len, S - 1]
+    return np.minimum(np.array((want * B)[:B]), S)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "B,H,KV,D,num_pages,page_size,max_pages",
+    "B,H,KV,D,num_pages,page_size,max_pages,lens",
     [
-        (2, 4, 2, 64, 8, 16, 3),
-        (3, 8, 2, 64, 16, 32, 4),
-        (1, 8, 1, 128, 8, 64, 2),
-        (2, 4, 4, 32, 12, 8, 6),
-        (4, 32, 8, 128, 40, 16, 9),
-        (3, 48, 1, 128, 40, 16, 9),   # granite-20b: 48 query heads over one KV head
-        (2, 96, 2, 64, 24, 16, 6),    # G = 48 over two KV heads
-        (2, 12, 1, 32, 8, 16, 3),     # G = 12: four rows per warp
+        (2, 4, 2, 64, 8, 16, 3, None),
+        (3, 8, 2, 64, 16, 32, 4, None),
+        (1, 8, 1, 128, 8, 64, 2, None),
+        (2, 4, 4, 32, 12, 8, 6, None),
+        (4, 32, 8, 128, 40, 16, 9, None),
+        (3, 48, 1, 128, 40, 16, 9, None),   # granite-20b: 48 query heads over one KV head
+        (2, 96, 2, 64, 24, 16, 6, None),    # G = 48 over two KV heads
+        (2, 12, 1, 32, 8, 16, 3, None),     # G = 12: four rows per warp
+        (8, 32, 8, 128, 1025, 16, 128, "edges"),  # qwen3-8b at batch 8: 8 splits
+        (8, 48, 1, 128, 1025, 16, 128, "edges"),  # granite-20b at batch 8: 16 splits
+        (4, 32, 8, 64, 200, 8, 40, "edges"),      # pages of 8 over several splits
+        (4, 8, 2, 64, 60, 64, 12, "edges"),       # pages of 64 over several splits
+        (8, 32, 32, 64, 1025, 16, 128, None),     # zamba2-1.2b at batch 8: 3 splits
     ],
 )
 def test_paged_kernel_matches_plain(cuda, dtype, B, H, KV, D, num_pages, page_size,
-                                    max_pages):
+                                    max_pages, lens):
     rng = np.random.default_rng(num_pages)
     q = _randn(rng, (B, 1, H, D), dtype, cuda)
     pk = _randn(rng, (num_pages, page_size, KV, D), dtype, cuda)
     pv = _randn(rng, (num_pages, page_size, KV, D), dtype, cuda)
     pt = torch.as_tensor(rng.integers(0, num_pages, size=(B, max_pages)),
                          dtype=torch.int32, device=cuda)
-    lengths = rng.integers(1, max_pages * page_size + 1, size=B)
-    lengths[0] = 0  # an idle slot gives zeros
+    if lens == "edges":
+        _, split_len = paged_mod.paged_splits(B, KV, max_pages, page_size,
+                                              paged_mod.sm_count(cuda), dtype)
+        lengths = _split_edge_lengths(B, max_pages, page_size, split_len)
+    else:
+        lengths = rng.integers(1, max_pages * page_size + 1, size=B)
+        lengths[0] = 0  # an idle slot gives zeros
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
     before = ops.paged_decode_attention.launches
     got = ops.paged_decode_attention(q, pk, pv, pt, lengths)
@@ -237,6 +256,9 @@ def _scan_inputs(rng, B, S, H, P, N, device):
         (1, 384, 32, 64, 128, 128), # mamba2-370m's heads and state, 3 chunks
         (1, 640, 64, 64, 64, 128),  # zamba2-1.2b's, 5 chunks
         (2, 144, 3, 16, 40, 48),    # chunk and N off the powers of two
+        (1, 1024, 32, 64, 128, 128),  # mamba2-370m's longest prompt: 8 chunks
+        (1, 2048, 32, 64, 128, 128),  # 16 chunks
+        (2, 160, 2, 80, 24, 40),    # two P tiles, the second of 16 columns; ragged L
     ],
 )
 def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
@@ -269,6 +291,21 @@ def test_ssm_scan_kernel_reads_strided_views_and_keeps_padded_states(cuda):
     _, fin_short = ops.ssm_scan(x[1:, :200], dt[1:, :200], A, Bm[1:, :200], Cm[1:, :200],
                                 chunk=40)
     torch.testing.assert_close(fin[1:], fin_short, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_ssm_scan_kernel_reads_rows_that_are_not_16_byte_aligned(cuda):
+    """x, B and C one element into wider tensors: the kernel copies them 4
+    bytes at a time instead of 16, with the same result."""
+    rng = np.random.default_rng(6)
+    B, S, H, P, N = 1, 256, 4, 64, 36
+    x, dt, A, Bm, Cm = _scan_inputs(rng, B, S, H, P, N, cuda)
+    wide = lambda t: torch.cat([t[..., :1], t], dim=-1)[..., 1:]  # noqa: E731
+    xu, Bu, Cu = wide(x.reshape(B, S, H * P)).reshape(B, S, H, P), wide(Bm), wide(Cm)
+    assert xu.data_ptr() % 16 and Bu.data_ptr() % 16 and Cu.data_ptr() % 16
+    y, fin = ops.ssm_scan(xu, dt, A, Bu, Cu, chunk=64)
+    want_y, want_fin = ssm_scan_plain(x, dt, A, Bm, Cm, 64)
+    torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(fin, want_fin, atol=SCAN_TOL, rtol=SCAN_TOL)
 
 
 def test_ssm_scan_wrapper_raises_on_unsupported_input(cuda):

@@ -264,6 +264,38 @@ def test_paged_plain_matches_pallas_and_ref(B, H, KV, D, num_pages, page_size, m
     assert np.all(got[~live] == 0.0)
 
 
+@pytest.mark.parametrize(
+    "B,KV,dtype,want",
+    [
+        (8, 8, torch.bfloat16, (8, 256)),   # qwen3-8b at batch 8: 512 blocks
+        (8, 1, torch.bfloat16, (16, 128)),  # granite-20b: two tiles a split
+        (8, 32, torch.bfloat16, (3, 704)),  # zamba2-1.2b: 768 blocks
+        (8, 8, torch.float32, (8, 256)),
+        (8, 1, torch.float32, (32, 64)),    # float32 tiles are 32 tokens
+        (1, 1, torch.float32, (32, 64)),
+    ],
+)
+def test_paged_splits_come_from_the_table_width_alone(B, KV, dtype, want):
+    """The paged wrapper cuts the page table's width (128 pages of 16 on the
+    main path) into splits from shapes alone: it never reads the lengths,
+    which live on the card.  The splits cover the width in whole tiles,
+    fill the card's 132 SMs about PAGED_WAVES times, and are at least two
+    tiles long."""
+    from repro_torch.kernels.decode_attention import TILE
+    from repro_torch.kernels.paged_attention import (
+        MIN_SPLIT_TILES, PAGED_WAVES, paged_splits,
+    )
+
+    got = paged_splits(B, KV, 128, 16, 132, dtype)
+    assert got == want
+    splits, split_len = got
+    tile = MMA_TILE if dtype == torch.bfloat16 else TILE
+    assert split_len % tile == 0 and split_len >= MIN_SPLIT_TILES * tile
+    assert splits * split_len >= 128 * 16 > (splits - 1) * split_len
+    assert B * KV * splits <= 2 * PAGED_WAVES * 132
+    assert "lengths" not in paged_splits.__code__.co_varnames
+
+
 def test_ops_wrappers_route_cpu_to_plain_versions_without_counting():
     rng = np.random.default_rng(0)
     q = torch.from_numpy(normal(rng, (2, 16, 4, 32)))

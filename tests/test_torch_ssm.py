@@ -151,6 +151,91 @@ def test_ops_ssm_scan_routes_cpu_to_plain_without_counting():
     assert ops.launches()["ssm_scan"] == 0
 
 
+# -- the scan kernel's 3xTF32 products, in plain torch ------------------------------
+#
+# The CUDA kernel cannot run here.  This emulation follows its four steps
+# (C·Bᵀ, each chunk's state, the carried recurrence, y) with every product
+# in 3xTF32 as the kernel splits it, on the float32 bits: hi = the operand
+# rounded to a tf32 (10 mantissa bits, half away from zero), lo = the
+# remainder with its low 13 bits cut (the tensor core ignores them), and
+# lo·hi + hi·lo + hi·hi summed in float32.  Held against a float64 run, it
+# shows the design keeps float32 accuracy; one-pass TF32 does not.
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to the nearest tf32, ties away from zero: add half
+    of the dropped 13 bits to the magnitude, then cut them."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _cut(t: torch.Tensor) -> torch.Tensor:
+    """float32 with its low 13 mantissa bits cut, as the tensor core reads it."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _cut(a - ah), _cut(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _scan_emulated(x, dt, A, B_, C_, L, mm):
+    """The kernel's steps in float32 with its products through ``mm``."""
+    Bb, S, H, P = x.shape
+    N, nc = B_.shape[-1], S // L
+    clip_exp = lambda t: torch.exp(torch.clamp(t, -60.0, 0.0))  # noqa: E731
+    xr = x.reshape(Bb, nc, L, H, P).permute(0, 1, 3, 2, 4)  # (B, nc, H, L, P)
+    dtr = dt.reshape(Bb, nc, L, H).permute(0, 1, 3, 2)  # (B, nc, H, L)
+    Br, Cr = B_.reshape(Bb, nc, 1, L, N), C_.reshape(Bb, nc, 1, L, N)
+    cs = torch.cumsum(dtr * A[:, None], -1)
+    cb = mm(Cr, Br.transpose(-1, -2))  # chunk_cb
+    lower = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    W = torch.where(lower, cb * clip_exp(cs[..., :, None] - cs[..., None, :])
+                    * dtr[..., None, :], 0.0)
+    weight = clip_exp(cs[..., -1:] - cs) * dtr
+    states = mm((xr * weight[..., None]).transpose(-1, -2), Br)  # chunk_state
+    carry, entering = torch.zeros_like(states[:, 0]), []
+    for c in range(nc):  # state_pass
+        entering.append(carry)
+        carry = carry * clip_exp(cs[:, c, :, -1])[..., None, None] + states[:, c]
+    entering = torch.stack(entering, 1)
+    y = mm(W, xr) + mm(Cr * clip_exp(cs)[..., None], entering.transpose(-1, -2))  # chunk_scan
+    return y.permute(0, 1, 3, 2, 4).reshape(Bb, S, H, P), carry
+
+
+def _tol_used(got, want) -> float:
+    """The largest share of allclose's SCAN_TOL bound an element uses."""
+    return max(((g.double() - w).abs() / (SCAN_TOL * (1 + w.abs()))).max().item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("N", [128, 64])  # mamba2-370m's and zamba2-1.2b's state
+def test_ssm_scan_3xtf32_products_keep_float32_accuracy(N):
+    """At mamba2's heads (P 64, chunk 128), two chunks: the 3xTF32 scan uses
+    under a tenth of SCAN_TOL against float64, no more than float32 itself
+    does, and agrees with the JAX package's ssd_chunked; one-pass TF32
+    breaks the tolerance."""
+    rng = np.random.default_rng(N)
+    args = scan_inputs(rng, 1, 256, 4, 64, N)
+    t = [torch.from_numpy(a) for a in args]
+    want = ssm_scan_plain(*(a.double() for a in t), 128)
+    three = _scan_emulated(*t, 128, _mm_3xtf32)
+    one = _scan_emulated(*t, 128, _mm_tf32)
+    f32 = _scan_emulated(*t, 128, torch.matmul)
+    used3, used1, used32 = (_tol_used(r, want) for r in (three, one, f32))
+    assert used3 < 0.1
+    assert used3 <= 1.5 * used32 + 1e-3
+    assert used1 > 1.0, f"one-pass TF32 used {used1:.2f} of the tolerance"
+    jy, jfin = jssm.ssd_chunked(*(jnp.asarray(a) for a in args), 128)
+    close(three[0], jy, SCAN_TOL)
+    close(three[1], jfin, SCAN_TOL)
+
+
 def test_ops_ssm_scan_refuses_other_devices():
     x = torch.empty((1, 16, 2, 16), device="meta")
     with pytest.raises(ValueError, match="meta"):
