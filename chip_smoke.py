@@ -13,9 +13,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    each library's count of tensor-core (HMMA) instructions from
    ``cuobjdump -sass``, which must not be 0 for any of the four;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's
-   and granite-20b's, the ring prefill's batch-8 window, the flat decode on
-   prefix and ring masks, the SSD scan at mamba2-370m's and zamba2-1.2b's),
+   card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's,
+   granite-20b's, phi4-mini-3.8b's (G = 3) and internvl2-1b's (G = 7), at
+   head_dim 16 (phi4-mini's smoke heads) in bf16 and float32, the ring
+   prefill's batch-8 window, the flat decode on prefix and ring masks, the
+   SSD scan at mamba2-370m's and zamba2-1.2b's),
    with its time, the plain version's, a library call's where one exists,
    and the bound (the scan's both on the tensor cores, which it is held
    to, and on the float32 CUDA cores); for the paged decode and the scan,
@@ -23,15 +25,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    time with one wave of splits;
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
-   qwen3-8b, zamba2-1.2b and granite-20b (paged and flat) and mamba2-370m
-   (flat); and qwen3-8b's ring cache (window 8) driven through
+   qwen3-8b, zamba2-1.2b, granite-20b, phi4-mini-3.8b and llama3-405b
+   (head_dim 16), internvl2-1b and musicgen-large (paged and flat) and
+   mamba2-370m (flat); and qwen3-8b's ring cache (window 8) driven through
    Model.prefill and Model.decode_step past the wrap;
 5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers), zamba2-1.2b
-   (38 Mamba2 layers, 19 shared-attention calls) and granite-20b (52
-   layers, on the paged and on the flat backend) at full width and depth,
-   bf16, random weights from --seed, each serving 16 requests through
-   Engine + run_closed_loop, with every kernel's launch count checked
-   against the run's admissions and decode steps; then granite-20b's
+   (38 Mamba2 layers, 19 shared-attention calls), granite-20b (52 layers,
+   on the paged and on the flat backend), phi4-mini-3.8b (32 layers),
+   internvl2-1b (24 layers, fed token ids as the reference engine feeds
+   it) and musicgen-large (48 layers) at full width and depth, bf16,
+   random weights from --seed, each serving 16 requests through Engine +
+   run_closed_loop, with every kernel's launch count checked against the
+   run's admissions and decode steps, and each printing the paper's §8.3
+   feedback: the H100 roofline profile's predicted throughput for a
+   7-slice (whole-card) instance, the measured one and the correction of
+   a MeasuredProfile fed the run; then granite-20b's
    weights under a 512-token window: a batch-8 prefill of 1,024 tokens and
    16 decode steps past the wrap on ring caches;
 6. profiles: for qwen3-8b and granite-20b (flat), eight full decode steps
@@ -76,6 +84,9 @@ NEW_TOKENS = 64
 
 # the SSD scan's float32 bound: tests/test_kernels.py's tolerance for the Pallas scan
 SCAN_TOL = 2e-3
+
+# the MIG instance size the §8.3 feedback credits: all 7 compute slices
+WHOLE_CARD = 7
 
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -526,14 +537,16 @@ def init_main(torch, Model, flatten, cfg, seed):
     return model, params
 
 
-def serve_main(torch, ops, Engine, Request, run_closed_loop, model, params, seed, backend,
-               expect_backend, expect_counts):
+def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model, params,
+               seed, backend, expect_backend, expect_counts):
     """Serve 16 requests of 128-1024 prompt tokens at full width on
     ``backend``; check the launch counts against ``expect_counts(admissions,
-    steps)``.  The traffic comes from its own generator, seeded by ``seed``
-    and the config's name, so it does not move when other phases draw more
-    or fewer numbers, and two backends of one model see the same requests.
-    Returns (engine, counts, rng)."""
+    steps)``; feed the measured throughput into ``measured_for(arch)``, a
+    MeasuredProfile round the arch's H100 profile, credited to a whole card
+    (size 7), and print the §8.3 correction.  The traffic comes from its
+    own generator, seeded by ``seed`` and the config's name, so it does not
+    move when other phases draw more or fewer numbers, and two backends of
+    one model see the same requests.  Returns (engine, counts, rng)."""
     cfg = model.cfg
     rng = np.random.default_rng([seed, *cfg.name.encode()])
 
@@ -574,7 +587,9 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, model, params, seed
     engine._prefill, engine._decode = prefill, decode
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    stats = run_closed_loop(engine, reqs, seed=seed)
+    measured = measured_for(cfg.name)
+    stats = run_closed_loop(engine, reqs, seed=seed, measured=measured, service=cfg.name,
+                            size=WHOLE_CARD)
     torch.cuda.synchronize()
     counts = ops.launches()
     engine._prefill, engine._decode = orig_prefill, orig_decode
@@ -596,6 +611,11 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, model, params, seed
         fail(f"{cfg.name}: served {stats.served} of {len(reqs)} requests")
     if bad:
         fail(f"{cfg.name}: {bad} non-finite logits on the main path")
+    phase("feedback", config=cfg.name, backend=engine.kv_backend, size=WHOLE_CARD,
+          batch=engine.batch,
+          predicted_rps=f"{measured.predicted(cfg.name, WHOLE_CARD, engine.batch):.3f}",
+          measured_rps=f"{stats.throughput:.3f}",
+          correction=f"{measured.correction(cfg.name, WHOLE_CARD):.4f}")
     if counts != expect:
         fail(f"{cfg.name}: launch counts {counts} != expected {expect}")
     return engine, counts, rng
@@ -613,6 +633,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
     try:
         from repro_torch.configs import get_config, get_smoke_config, long_context_variant
+        from repro_torch.core.arch_bridge import h100_arch_profiles
+        from repro_torch.core.online_profiles import MeasuredProfile
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import decode_attention as dec_mod
         from repro_torch.kernels import flash_attention as fa_mod
@@ -686,12 +708,32 @@ def main() -> None:
     check_decode(torch, ops, dec_mod, torch.bfloat16, rng, granite, 8, 2048, window=512)
     check_decode(torch, ops, dec_mod, torch.float32, rng, granite, 8, 2048)
     check_decode(torch, ops, dec_mod, torch.bfloat16, rng, qwen, 8, 2048)
+    # head_dim 16 (phi4-mini's smoke heads, G = 3) in both dtypes; phi4-mini's
+    # (G = 3) and internvl2-1b's (G = 7) full shapes
+    phi4, intern, music = (
+        get_config(a) for a in ("phi4-mini-3.8b", "internvl2-1b", "musicgen-large"))
+    d16 = get_smoke_config("phi4-mini-3.8b")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash(torch, ops, fa_mod, dtype, rng, d16, 512, None)
+        check_paged(torch, ops, paged_mod, dtype, rng, d16, batch=8, max_len=2048,
+                    page_size=16)
+        check_decode(torch, ops, dec_mod, dtype, rng, d16, 8, 2048)
+        for cfg in (phi4, intern):
+            check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch=8, max_len=2048,
+                        page_size=16)
+    for cfg in (phi4, intern):
+        check_flash(torch, ops, fa_mod, torch.bfloat16, rng, cfg, 1024, None)
+        check_decode(torch, ops, dec_mod, torch.bfloat16, rng, cfg, 8, 2048)
 
     # 4. whole-path parity: the card's kernels against the CPU's plain path ----
     for arch, backend in (("qwen3-8b", "paged"), ("qwen3-8b", "flat"),
                           ("mamba2-370m", "flat"), ("zamba2-1.2b", "paged"),
                           ("zamba2-1.2b", "flat"), ("granite-20b", "paged"),
-                          ("granite-20b", "flat")):
+                          ("granite-20b", "flat"), ("phi4-mini-3.8b", "paged"),
+                          ("phi4-mini-3.8b", "flat"), ("llama3-405b", "paged"),
+                          ("llama3-405b", "flat"), ("internvl2-1b", "paged"),
+                          ("internvl2-1b", "flat"), ("musicgen-large", "paged"),
+                          ("musicgen-large", "flat")):
         scfg = get_smoke_config(arch, dtype="float32")
         smodel = Model(scfg)
         params_cpu = smodel.init(args.seed, device="cpu")
@@ -706,7 +748,7 @@ def main() -> None:
         uses = {"decode_attention": attends and backend == "flat",
                 "flash_attention": attends,
                 "paged_decode_attention": attends and backend == "paged",
-                "ssm_scan": scfg.arch_type != "dense"}
+                "ssm_scan": scfg.arch_type in ("ssm", "hybrid")}
         phase("parity", config=scfg.name, backend=backend, cpu_tokens=want, cuda_tokens=got,
               launches=json.dumps(counts))
         if got != want:
@@ -718,7 +760,8 @@ def main() -> None:
                 args.seed)
 
     # 5. main paths at full width, each followed by its profile (6) -----------------
-    serve = (torch, ops, Engine, Request, run_closed_loop)
+    serve = (torch, ops, Engine, Request, run_closed_loop,
+             lambda arch: MeasuredProfile(h100_arch_profiles([arch])))
     counts = []
     model, params = init_main(torch, Model, flatten, qwen, args.seed)
     engine, c, rng = serve_main(
@@ -781,6 +824,19 @@ def main() -> None:
     counts.append(ring_main(torch, ops, Model, long_context_variant, granite, params, rng))
     del model, params
     torch.cuda.empty_cache()
+
+    # the dense stack at three more shapes: phi4-mini (G = 3, vocab 200,064),
+    # internvl2-1b (G = 7) and musicgen-large (G = 1, vocab 2,048)
+    for cfg in (phi4, intern, music):
+        model, params = init_main(torch, Model, flatten, cfg, args.seed)
+        L = cfg.num_layers
+        _, c, _ = serve_main(
+            *serve, model, params, args.seed, "auto", "paged",
+            lambda admits, steps, L=L: {"decode_attention": 0, "flash_attention": admits * L,
+                                        "paged_decode_attention": steps * L, "ssm_scan": 0})
+        counts.append(c)
+        del model, params, _
+        torch.cuda.empty_cache()
 
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)

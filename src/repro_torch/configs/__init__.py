@@ -1,12 +1,14 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
 The port's own copy of the JAX package's registry, holding the
-architectures the port serves so far: qwen3-8b (dense GQA), mamba2-370m
-(pure SSM), zamba2-1.2b (Mamba2 with a shared attention block) and
-granite-20b (dense, MQA, GELU MLP).  Each module cites its source model
-card; ``smoke`` variants are reduced same-family configs used by the CPU
-tests.  :func:`long_context_variant` is the reference's sliding-window
-variant, which gives ring caches.
+architectures the port serves so far: qwen3-8b, phi4-mini-3.8b and
+llama3-405b (dense GQA), mamba2-370m (pure SSM), zamba2-1.2b (Mamba2 with
+a shared attention block), granite-20b (dense, MQA, GELU MLP), and
+internvl2-1b (vlm) and musicgen-large (audio), the dense block stack fed
+by a stub frontend.  Each module cites its source model card; ``smoke``
+variants are reduced same-family configs used by the CPU tests.
+:func:`long_context_variant` is the reference's sliding-window variant,
+which gives ring caches.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ _MODULES: Dict[str, str] = {
     "mamba2-370m": "mamba2_370m",
     "zamba2-1.2b": "zamba2_1p2b",
     "granite-20b": "granite_20b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "llama3-405b": "llama3_405b",
+    "internvl2-1b": "internvl2_1b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -60,6 +60,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Output columns a lane holds in the float32 tiles: lane + 32 * c for
+// c < kCols<D>.  Below D = 32 (D = 16) lanes 0..D-1 hold one column and
+// the others none: col_ok is false for them, and they read zeros of V and
+// write nothing.
+template <int D>
+constexpr int kCols = (D + 31) / 32;
+
+template <int D>
+__device__ __forceinline__ bool col_ok(int lane, int c) {
+  return D % 32 == 0 || lane + 32 * c < D;
+}
+
 // One 32-token tile of one-query attention: the float32 tile of both
 // decode kernels (split_attend_f32 in split_decode.cuh; bf16 runs
 // attend_tile_mma on the tensor cores instead).  K sits in ks as [32][D + 1]
@@ -67,15 +79,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 // [32][D], the query rows in qs as [W * R][D], zero past the G real ones.
 // A warp owns rows warp + W * i, i < R, and keeps their online-softmax
 // state (m, l, acc) in registers, lane holding output columns lane + 32 *
-// c.  Lane j scores token j, masked where !ok; the K value of a column is
-// read once for all R rows.  Every row is computed, padding included, so
-// no branch guards the shuffles: the caller writes out only the real rows.
+// c (kCols above).  Lane j scores token j, masked where !ok; the K value
+// of a column is read once for all R rows.  Every row is computed,
+// padding included, so no branch guards the shuffles: the caller writes
+// out only the real rows.
 template <int W, int R, int D>
 __device__ __forceinline__ void attend_tile(const float* qs, const float* ks,
                                             const float* vs, bool ok, float scale,
                                             int warp, int lane, float (&m)[R], float (&l)[R],
-                                            float (&acc)[R][D / 32]) {
-  constexpr int C = D / 32;
+                                            float (&acc)[R][kCols<D>]) {
+  constexpr int C = kCols<D>;
   const float* kr = ks + lane * (D + 1);
   float s[R];
 #pragma unroll
@@ -107,7 +120,7 @@ __device__ __forceinline__ void attend_tile(const float* qs, const float* ks,
   for (int j = 0; j < 32; ++j) {
     float vv[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) vv[c] = vs[j * D + lane + 32 * c];
+    for (int c = 0; c < C; ++c) vv[c] = col_ok<D>(lane, c) ? vs[j * D + lane + 32 * c] : 0.f;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const float pj = __shfl_sync(kFullMask, p[i], j);

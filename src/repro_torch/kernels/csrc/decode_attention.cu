@@ -148,6 +148,8 @@ cudaError_t launch(const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int D, const Args& a) {
   switch (D) {
+    case 16:
+      return launch<T, 16>(a);
     case 32:
       return launch<T, 32>(a);
     case 64:
@@ -192,6 +194,8 @@ cudaError_t launch_mma_rows(const Args& a) {
 
 cudaError_t dispatch_mma(int D, const Args& a) {
   switch (D) {
+    case 16:
+      return launch_mma_rows<16>(a);
     case 32:
       return launch_mma_rows<32>(a);
     case 64:

@@ -84,7 +84,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
                        int64_t o_sb, int64_t o_ss, int64_t o_sh,
                        float scale, int window) {
-  constexpr int C = D / 32;  // output columns per lane
+  constexpr int C = kCols<D>;  // output columns per lane (common.cuh)
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][D]
   float* ks = qs + kBQ * D;           // [kBK][D + 1]
@@ -192,7 +192,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float vv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = vs[j * D + lane + 32 * c];
+      for (int c = 0; c < C; ++c) vv[c] = col_ok<D>(lane, c) ? vs[j * D + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float pj = __shfl_sync(kFullMask, p[i], j);
@@ -209,7 +209,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
-    for (int c = 0; c < C; ++c) orow[lane + 32 * c] = from_float<T>(acc[i][c] / denom);
+    for (int c = 0; c < C; ++c)
+      if (col_ok<D>(lane, c)) orow[lane + 32 * c] = from_float<T>(acc[i][c] / denom);
   }
 }
 
@@ -373,6 +374,7 @@ cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v, voi
                          int S, int H, int KV, const int64_t* st, float scale, int window,
                          cudaStream_t stream) {
   switch (D) {
+    case 16: return launch_mma<16>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
     case 32: return launch_mma<32>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
     case 64: return launch_mma<64>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
     case 128: return launch_mma<128>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
@@ -385,6 +387,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
                          int B, int S, int H, int KV, const int64_t* st, float scale,
                          int window, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, st, scale, window, stream);

@@ -60,7 +60,7 @@ __device__ __forceinline__ void split_attend_f32(const T* __restrict__ q, const 
                                                  int s_begin, int s_end, int splits,
                                                  int64_t q_sb, int64_t q_sh, float scale) {
   constexpr int W = kDecodeWarps;
-  constexpr int C = D / 32;
+  constexpr int C = kCols<D>;
   extern __shared__ __align__(16) float smem_f32[];
   float* qs = smem_f32;         // [W * R][D], zero past G
   float* ks = qs + W * R * D;   // [kTT][D + 1]
@@ -162,7 +162,8 @@ __device__ __forceinline__ void split_attend_f32(const T* __restrict__ q, const 
       part_l[row] = l[i];
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) part_acc[row * D + lane + 32 * c] = acc[i][c];
+    for (int c = 0; c < C; ++c)
+      if (col_ok<D>(lane, c)) part_acc[row * D + lane + 32 * c] = acc[i][c];
   }
 }
 

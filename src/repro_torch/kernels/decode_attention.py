@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 64  # query heads per kv head the kernels take (4 tiles of 16 rows)
 TILE = 32  # tokens per tile of the float32 kernel; a split is a whole number of tiles
 MMA_TILE = 64  # tokens per tile of the bf16 (tensor-core) kernel

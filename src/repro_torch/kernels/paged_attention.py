@@ -29,7 +29,7 @@ from repro_torch.kernels.decode_attention import (
     MMA_TILE, TILE, sm_count, decode_attention_plain, splits_for,
 )
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 64  # query heads per kv head the kernel takes (4 warps x 16 heads)
 
 

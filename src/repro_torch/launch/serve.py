@@ -1,11 +1,14 @@
 """Serve CLI: a model in an :class:`Engine`, a stream of requests,
-throughput and latency.
+throughput and latency, and the paper's §8.3 feedback.
 
 The port of the JAX package's ``launch/serve.py``: its options and
 ``--stats-json`` schema, plus ``--device`` (default ``cuda``; pass
 ``--device cpu`` to run without a card) and ``--no-smoke`` for the full
-model; ``--size`` waits for the section 8.3 feedback (see ``--help``).
-Weights are random, from ``--seed``.
+model.  Weights are random, from ``--seed``.  The measured throughput is
+fed into a :class:`~repro_torch.core.online_profiles.MeasuredProfile`
+wrapped round the H100 MIG roofline profile of ``--arch`` (the full
+config's), credited to an instance of ``--size`` of the card's 7 compute
+slices (default 7, the whole card), and the correction is printed.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --requests 16 --batch 4 --new-tokens 8             # smoke config
@@ -19,6 +22,8 @@ Weights are random, from ``--seed``.
       --device cpu --backend flat                        # MQA smoke config, flat KV
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b --no-smoke \\
       --backend flat --batch 8 --max-len 2048            # 20 B parameters, one card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \\
+      --device cpu --size 3                              # vlm smoke config, 3g profile
 """
 
 from __future__ import annotations
@@ -29,18 +34,15 @@ import json
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.arch_bridge import h100_arch_profiles
+from repro_torch.core.online_profiles import MeasuredProfile
 from repro_torch.models import Model
+from repro_torch.roofline.hw import MIG_MEMORY_SLICES
 from repro_torch.serving import Engine, Request, run_closed_loop
-
-FEEDBACK_NOTE = (
-    "Unlike the reference CLI, this one does not yet feed the measured "
-    "throughput into a MeasuredProfile (the paper's section 8.3 loop, and "
-    "its --size option): that waits for an H100 chip profile."
-)
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=FEEDBACK_NOTE)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-8b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True,
                     help="reduced smoke config (--no-smoke: the full model)")
@@ -53,6 +55,9 @@ def main(argv=None) -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--size", type=int, choices=sorted(MIG_MEMORY_SLICES), default=7,
+                    help="H100 MIG instance size (compute slices of 7) credited in the "
+                         "§8.3 profile feedback; 7 is the whole card")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu runs the "
@@ -80,7 +85,11 @@ def main(argv=None) -> None:
         )
         for i in range(args.requests)
     ]
-    stats = run_closed_loop(engine, reqs, seed=args.seed)
+    measured = MeasuredProfile(h100_arch_profiles([args.arch]))
+    stats = run_closed_loop(
+        engine, reqs, seed=args.seed,
+        measured=measured, service=args.arch, size=args.size,
+    )
     lat = [r.finished_s - r.submitted_s for r in reqs]
     print(
         f"arch={cfg.name} device={engine.device} backend={engine.kv_backend} "
@@ -93,6 +102,10 @@ def main(argv=None) -> None:
             f"pages={engine.pool.num_pages} free={engine.pool.free_pages} "
             f"page_size={engine.pool.page_size}"
         )
+    print(
+        f"§8.3 feedback: measured correction for ({args.arch}, size={args.size}) "
+        f"= {measured.correction(args.arch, args.size):.4f}"
+    )
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump(stats.summary(args.arch), f, indent=1, sort_keys=True)

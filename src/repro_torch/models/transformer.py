@@ -3,7 +3,9 @@
 The port of the JAX package's ``models/transformer.py`` for three
 architecture families:
 
-  * dense  : a stack of (GQA attention + MLP) blocks, SwiGLU or GELU;
+  * dense, vlm, audio : a stack of (GQA attention + MLP) blocks, SwiGLU or
+             GELU (vlm and audio are the dense stack behind a stub
+             frontend, whose embeddings ``prefill(embeds=)`` takes);
   * ssm    : a stack of Mamba2 blocks;
   * hybrid : superblocks of ``shared_attn_every`` Mamba2 sublayers followed
              by one call of a single weight-shared GQA block (one weight
@@ -42,6 +44,9 @@ from repro_torch.models.mlp import mlp_forward, mlp_specs
 Params = Dict[str, Any]
 Device = Union[str, torch.device]
 
+# arch types served as the dense block stack, as the reference's are
+DENSE_TYPES = ("dense", "vlm", "audio")
+
 
 def _layer(tree: Params, i: int) -> Params:
     """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
@@ -73,15 +78,17 @@ class Model:
 
     def __post_init__(self):
         cfg = self.cfg
-        served = cfg.modality == "text" and (
-            (cfg.arch_type in ("dense", "hybrid") and cfg.attention_kind == "gqa")
+        # ``modality`` names the frontend only: the reference's model reads
+        # embeddings or token ids the same way for every modality
+        served = (
+            (cfg.arch_type in DENSE_TYPES + ("hybrid",) and cfg.attention_kind == "gqa")
             or (cfg.arch_type == "ssm" and cfg.attention_kind == "none")
         )
         if not served:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense GQA, SSM and hybrid text models only "
-                f"(arch_type={cfg.arch_type!r}, attention_kind={cfg.attention_kind!r}, "
-                f"modality={cfg.modality!r})"
+                f"{cfg.name}: the port serves dense (text, vlm, audio) GQA, SSM and hybrid "
+                f"models only (arch_type={cfg.arch_type!r}, "
+                f"attention_kind={cfg.attention_kind!r})"
             )
         if cfg.arch_type == "hybrid" and (
             cfg.shared_attn_every < 1 or cfg.num_layers % cfg.shared_attn_every
@@ -113,7 +120,7 @@ class Model:
         specs["final_norm"] = ((d,), "ones", None)
         ln: ParamSpec = ((d,), "ones", None)
         block: Dict[str, ParamSpec] = {}
-        if cfg.arch_type == "dense":
+        if cfg.arch_type in DENSE_TYPES:
             block["ln1"] = ln
             block.update({f"attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
             block["ln2"] = ln
@@ -160,23 +167,29 @@ class Model:
     def prefill(
         self,
         params: Params,
-        tokens: torch.Tensor,  # (B, S) int
+        tokens: Optional[torch.Tensor] = None,  # (B, S) int
         lengths: Optional[torch.Tensor] = None,  # (B,) true lengths of right-padded rows
+        embeds: Optional[torch.Tensor] = None,  # (B, S, d_model) frontend embeddings
     ) -> Tuple[torch.Tensor, Params]:
         """Full-sequence serving prefill: last-token logits (at ``lengths-1``
         for right-padded rows) and the decode cache of every layer, stacked
         along a leading layer axis.  SSM states are exact under padding
         (dt-masked identity steps); attention cache rows past a row's length
-        hold padding that the decode-side validity mask never reads."""
+        hold padding that the decode-side validity mask never reads.
+        ``embeds`` (a stub frontend's output) takes the place of
+        ``embed(tokens)``, cast to the config's dtype."""
         cfg = self.cfg
-        x = self.embed(params, tokens)
+        if embeds is None:
+            x = self.embed(params, tokens)
+        else:
+            x = embeds.to(DTYPES[cfg.dtype])
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         eps = cfg.norm_eps
         caches = []
         for i in range(self.depth):
             lp = _layer(params["layers"], i)
-            if cfg.arch_type == "dense":
+            if cfg.arch_type in DENSE_TYPES:
                 a, c = attn.gqa_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
                 x = self._mlp_residual(lp, x + a)
             elif cfg.arch_type == "ssm":
@@ -209,7 +222,7 @@ class Model:
         the attention part (flat or paged)."""
         cfg = self.cfg
         dtype = DTYPES[cfg.dtype]
-        if cfg.arch_type == "dense":
+        if cfg.arch_type in DENSE_TYPES:
             return attn_cache()
         if cfg.arch_type == "ssm":
             return ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
@@ -302,7 +315,7 @@ class Model:
         for i in range(self.depth):
             lp = _layer(params["layers"], i)
             lc = _layer(cache["layers"], i)
-            if cfg.arch_type == "dense":
+            if cfg.arch_type in DENSE_TYPES:
                 a = attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc)
                 x = self._mlp_residual(lp, x + a)
             elif cfg.arch_type == "ssm":

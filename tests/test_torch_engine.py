@@ -29,7 +29,8 @@ from repro_torch.serving import (  # noqa: E402
 )
 
 ARCH = "qwen3-8b"
-ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b")
+ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b", "phi4-mini-3.8b", "llama3-405b",
+         "internvl2-1b", "musicgen-large")
 MAX_LEN = 64
 NEW_TOKENS = 6
 _CACHE = {}

@@ -121,6 +121,8 @@ def _ragged_mask(rng, B, S, kind):
         (3, 12, 1, 256, 64, 128),  # G = 12 over one KV head (MQA)
         (2, 8, 2, 128, 32, 64),
         (2, 48, 1, 128, 128, 128), # granite-20b's group
+        (2, 6, 2, 128, 16, 64),    # phi4-mini's smoke heads: head_dim 16, G = 3
+        (2, 14, 2, 128, 16, 64),   # head_dim 16 at internvl2-1b's G = 7
     ],
 )
 def test_decode_plain_ragged_and_ring_masks(B, H, KV, S, D, bk, kind, dtype):

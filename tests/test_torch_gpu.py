@@ -52,6 +52,10 @@ def _randn(rng, shape, dtype, device):
         (1, 4, 2, 1, 64, None),       # ragged against the 64-row query tile
         (2, 4, 2, 15, 128, None),
         (1, 4, 1, 65, 32, 40),
+        (1, 6, 2, 100, 16, None),     # head_dim 16 (phi4-mini's smoke heads, G = 3)
+        (2, 8, 2, 130, 16, 40),       # head_dim 16 under a window
+        (1, 24, 8, 513, 128, None),   # phi4-mini: G = 3
+        (1, 14, 2, 300, 64, None),    # internvl2-1b: G = 7
     ],
 )
 def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
@@ -111,6 +115,10 @@ def _split_edge_lengths(B, max_pages, page_size, split_len):
         (4, 32, 8, 64, 200, 8, 40, "edges"),      # pages of 8 over several splits
         (4, 8, 2, 64, 60, 64, 12, "edges"),       # pages of 64 over several splits
         (8, 32, 32, 64, 1025, 16, 128, None),     # zamba2-1.2b at batch 8: 3 splits
+        (2, 6, 2, 16, 8, 16, 3, None),            # head_dim 16, G = 3
+        (4, 8, 2, 16, 60, 16, 12, "edges"),       # head_dim 16 over several splits
+        (8, 24, 8, 128, 1025, 16, 128, "edges"),  # phi4-mini at batch 8: G = 3
+        (8, 14, 2, 64, 1025, 16, 128, "edges"),   # internvl2-1b at batch 8: G = 7
     ],
 )
 def test_paged_kernel_matches_plain(cuda, dtype, B, H, KV, D, num_pages, page_size,
@@ -169,6 +177,10 @@ def _decode_mask(rng, B, S, kind, device):
         (3, 1, 20, 128, 700),  # G not a multiple of 16: two 16-row tiles, 12 padding rows
         (3, 2, 6, 64, 130),    # G = 6: one 16-row tile, 10 padding rows
         (2, 1, 64, 64, 200),   # G = 64: four 16-row tiles, one a warp
+        (3, 2, 3, 16, 300),    # head_dim 16 at phi4-mini's G = 3
+        (2, 2, 4, 16, 1000),   # head_dim 16 at llama3-405b's smoke group
+        (2, 8, 3, 128, 1000),  # phi4-mini: G = 3
+        (2, 2, 7, 64, 700),    # internvl2-1b: G = 7
     ],
 )
 def test_decode_kernel_matches_plain(cuda, dtype, kind, B, KV, G, D, S):

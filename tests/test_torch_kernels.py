@@ -51,6 +51,8 @@ def normal(rng, shape):
         (2, 4, 2, 256, 64, 128, 64),  # GQA
         (1, 8, 1, 256, 128, 64, 128), # MQA, head_dim 128
         (2, 2, 2, 192, 32, 64, 96),   # uneven-ish blocks
+        (1, 6, 2, 128, 16, 64, 64),   # phi4-mini's smoke heads: head_dim 16, G = 3
+        (2, 14, 2, 128, 16, 64, 128), # head_dim 16 at internvl2-1b's G = 7
     ],
 )
 def test_flash_plain_matches_pallas_and_ref(B, H, KV, S, D, bq, bk, dtype):
@@ -223,6 +225,31 @@ def test_decode_mma_rounding_fits_the_bf16_tolerance(B, KV, G, kind):
         np.testing.assert_allclose(got[b:b + 1], f32(want), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("G", [3, 7])
+def test_mma_rounding_at_head_dim_16_fits_the_bf16_tolerance(G):
+    """The bf16 kernels at D = 16, one m16n8k16 step for QK^T: flash at
+    S = 300 and the flat decode over a 2048-row cache, groups of 3
+    (phi4-mini) and 7 (internvl2-1b)."""
+    B, KV, D, tol = 2, 2, 16, FLASH_TOL["bfloat16"]
+    H = KV * G
+    rng = np.random.default_rng(G)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(normal(rng, s), "bfloat16") for s in ((B, H, 300, D), (B, KV, 300, D),
+                                                   (B, KV, 300, D))
+    )
+    got = f32(_flash_tiles_emulated(qt, kt, vt, D ** -0.5))
+    np.testing.assert_allclose(got, f32(flash_attention_plain(qt, kt, vt)), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, f32(ref.flash_attention_ref(qj, kj, vj)), atol=tol, rtol=tol)
+
+    S = 2048
+    q, k, v = (torch.from_numpy(normal(rng, s)).bfloat16()
+               for s in ((B, H, D), (B, S, KV, D), (B, S, KV, D)))
+    valid = torch.arange(S)[None, :] < torch.tensor([[700], [S]])
+    got = f32(_decode_tiles_emulated(q, k, v, valid, D ** -0.5))
+    np.testing.assert_allclose(got, f32(decode_attention_plain(q, k, v, valid)), atol=tol,
+                               rtol=tol)
+
+
 def _paged_inputs(rng, B, H, KV, D, num_pages, page_size, max_pages, zero_row):
     q = normal(rng, (B, H, D))
     pk = normal(rng, (num_pages, page_size, KV, D))
@@ -243,6 +270,9 @@ def _paged_inputs(rng, B, H, KV, D, num_pages, page_size, max_pages, zero_row):
         (2, 4, 4, 32, 12, 8, 6, False),   # MHA small pages
         (3, 4, 2, 32, 10, 8, 4, True),    # an idle slot: length 0
         (2, 48, 1, 128, 8, 16, 3, True),  # granite-20b: G = 48 over one KV head
+        (2, 6, 2, 16, 8, 16, 3, True),    # phi4-mini's smoke heads: head_dim 16, G = 3
+        (3, 8, 2, 16, 10, 8, 4, False),   # llama3-405b's smoke heads: head_dim 16, G = 4
+        (2, 14, 2, 64, 8, 16, 3, True),   # internvl2-1b's heads: G = 7
     ],
 )
 def test_paged_plain_matches_pallas_and_ref(B, H, KV, D, num_pages, page_size, max_pages,

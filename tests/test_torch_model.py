@@ -1,5 +1,6 @@
-"""The port's configs, weight bridge and models (dense, SSM, hybrid)
-against the JAX package's, on the same bridged weights."""
+"""The port's configs, weight bridge and models (dense, SSM, hybrid, and
+the vlm/audio dense stacks fed tokens or frontend embeddings) against the
+JAX package's, on the same bridged weights."""
 
 import dataclasses
 
@@ -22,14 +23,22 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.common import flatten  # noqa: E402
 
 ARCH = "qwen3-8b"
-ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b")
-PAGED_ARCHS = ("qwen3-8b", "zamba2-1.2b")  # a pure SSM model has no KV to page
+ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b", "phi4-mini-3.8b", "llama3-405b",
+         "internvl2-1b", "musicgen-large")
+# a pure SSM model has no KV to page
+PAGED_ARCHS = ("qwen3-8b", "zamba2-1.2b", "phi4-mini-3.8b", "llama3-405b", "internvl2-1b",
+               "musicgen-large")
+STUB_ARCHS = ("internvl2-1b", "musicgen-large")  # fed frontend embeddings
 # one key of each new tree, so a renamed leaf fails loudly
 TREE_KEYS = {
     "qwen3-8b": ("layers/attn/wq", "layers/mlp/w_up"),
     "mamba2-370m": ("layers/w_z", "layers/conv_w", "layers/A_log"),
     "zamba2-1.2b": ("shared_attn/wq", "shared_attn/ln", "layers/mamba_0/w_z",
                     "layers/mamba_1/w_out"),
+    "phi4-mini-3.8b": ("layers/attn/wk", "layers/mlp/w_gate"),
+    "llama3-405b": ("layers/attn/wv", "layers/mlp/w_down"),
+    "internvl2-1b": ("layers/attn/wo", "layers/ln2"),
+    "musicgen-large": ("layers/attn/wq", "layers/ln1"),
 }
 _CACHE = {}
 
@@ -159,6 +168,30 @@ def test_prefill_logits_and_cache_match_jax(dtype, tol, arch):
     assert_trees_close(tc, jc, tol)
     # the padded vocab tail is masked
     assert np.all(f32(tl)[..., m.cfg.vocab_size:] <= -1e29)
+
+
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
+def test_prefill_from_frontend_embeddings_matches_jax(dtype, tol, arch):
+    """A stub frontend's embeddings in place of token ids: the port's
+    ``prefill(embeds=)`` and JAX's on the same float32 input (cast to the
+    config's dtype by both), with ragged lengths."""
+    jm, jp, m, tp = bridged(dtype, arch)
+    cfg = m.cfg
+    rng = np.random.default_rng(3)
+    emb = (0.02 * rng.standard_normal((2, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    lengths = np.array([cfg.frontend_tokens - 5, cfg.frontend_tokens], np.int32)
+    jl, jc = jm.prefill(jp, embeds=jnp.asarray(emb), lengths=jnp.asarray(lengths))
+    tl, tc = m.prefill(tp, lengths=torch.from_numpy(lengths), embeds=torch.from_numpy(emb))
+    assert tl.shape == jl.shape == (2, 1, cfg.padded_vocab)
+    np.testing.assert_allclose(f32(tl), f32(jl), atol=tol, rtol=tol)
+    assert_trees_close(tc, jc, tol)
+    # the embeddings replace embed(tokens): the same rows give the same logits
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 8))
+    rows = tp["embed"][torch.from_numpy(toks)]
+    by_tokens, _ = m.prefill(tp, torch.from_numpy(toks))
+    by_embeds, _ = m.prefill(tp, embeds=rows.float())
+    torch.testing.assert_close(by_embeds, by_tokens, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("arch,paged", [(a, False) for a in ARCHS]

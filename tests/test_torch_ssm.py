@@ -396,14 +396,28 @@ def test_attention_layers_and_page_bytes_match_reference(arch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("arch_type", "moe"), ("attention_kind", "mla"), ("arch_type", "vlm"),
-    ("arch_type", "audio"), ("modality", "vision_stub"),
+    ("arch_type", "moe"), ("attention_kind", "mla"),
 ])
 def test_model_refuses_what_the_port_does_not_serve(field, value):
     cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), kv_lora_rank=8,
                               **{field: value})
     with pytest.raises(NotImplementedError):
         Model(cfg)
+
+
+@pytest.mark.parametrize("field,value,block_key", [
+    ("arch_type", "vlm", "layers/attn/wq"), ("arch_type", "audio", "layers/mlp/w_up"),
+    ("modality", "vision_stub", "layers/mamba_0/w_z"),
+])
+def test_model_serves_vlm_and_audio_as_the_dense_stack(field, value, block_key):
+    """vlm and audio are the dense block stack, as in the reference; the
+    modality names the frontend only and changes nothing in the model."""
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), kv_lora_rank=8,
+                              **{field: value})
+    m = Model(cfg)
+    assert block_key in m.param_specs()
+    logits, _ = m.prefill(m.init(0, device="cpu"), torch.ones((1, 16), dtype=torch.long))
+    assert torch.isfinite(logits).all()
 
 
 def test_hybrid_depth_must_divide_into_superblocks():
