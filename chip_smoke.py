@@ -26,14 +26,21 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
    qwen3-8b, zamba2-1.2b, granite-20b, phi4-mini-3.8b and llama3-405b
-   (head_dim 16), internvl2-1b and musicgen-large (paged and flat) and
-   mamba2-370m (flat); and qwen3-8b's ring cache (window 8) driven through
+   (head_dim 16), internvl2-1b and musicgen-large (paged and flat),
+   mamba2-370m (flat), deepseek-v2-236b and deepseek-v3-671b (MoE with
+   MLA, flat only; MLA is plain torch and launches no kernel) and the
+   deepseek-v2 smoke config with GQA in place of MLA (paged and flat, the
+   MoE family through flash and the decode kernels); and the ring caches
+   (window 8) of qwen3-8b and of deepseek-v2 (MLA) driven through
    Model.prefill and Model.decode_step past the wrap;
 5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers), zamba2-1.2b
    (38 Mamba2 layers, 19 shared-attention calls), granite-20b (52 layers,
    on the paged and on the flat backend), phi4-mini-3.8b (32 layers),
    internvl2-1b (24 layers, fed token ids as the reference engine feeds
-   it) and musicgen-large (48 layers) at full width and depth, bf16,
+   it) and musicgen-large (48 layers) at full width and depth, then
+   deepseek-v2-236b at full width with its depth cut to 6 layers (1 dense,
+   5 MoE; the whole model, 472 GB, fits no card) on the flat latent
+   cache, launching none of the four kernels, bf16,
    random weights from --seed, each serving 16 requests through Engine +
    run_closed_loop, with every kernel's launch count checked against the
    run's admissions and decode steps, and each printing the paper's §8.3
@@ -42,9 +49,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    a MeasuredProfile fed the run; then granite-20b's
    weights under a 512-token window: a batch-8 prefill of 1,024 tokens and
    16 decode steps past the wrap on ring caches;
-6. profiles: for qwen3-8b and granite-20b (flat), eight full decode steps
-   timed on the host clock and eight more traced with torch.profiler
-   (device-busy time by kernel family, idle share, launches per step); for
+6. profiles: for qwen3-8b, granite-20b (flat) and deepseek-v2-236b,
+   eight full decode steps timed on the host clock and eight more traced
+   with torch.profiler (device-busy time by kernel family, idle share,
+   launches per step); for
    qwen3-8b and mamba2-370m, one admission of a 1024-token prompt, timed
    and then traced the same way.
 
@@ -56,6 +64,7 @@ beside this script, it exits non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -87,6 +96,10 @@ SCAN_TOL = 2e-3
 
 # the MIG instance size the §8.3 feedback credits: all 7 compute slices
 WHOLE_CARD = 7
+
+# deepseek-v2-236b's depth on one card: its one dense layer and 5 MoE layers
+# (21.25 B parameters, 42.49 GB in bf16; all 60 layers are 472 GB)
+DSV2_LAYERS = 6
 
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -448,10 +461,11 @@ def ring_tokens(torch, model, params, prompts, steps, device):
 
 
 def ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_variant, rng,
-                seed):
-    """qwen3 smoke under long_context_variant(window=8): the card's tokens
-    equal the CPU's through a 16-token prefill and 12 decode steps."""
-    cfg = long_context_variant(get_smoke_config("qwen3-8b", dtype="float32"), window=8)
+                seed, arch="qwen3-8b"):
+    """``arch``'s smoke config under long_context_variant(window=8): the
+    card's tokens equal the CPU's through a 16-token prefill and 12 decode
+    steps; GQA launches flash and the flat decode, MLA no kernel."""
+    cfg = long_context_variant(get_smoke_config(arch, dtype="float32"), window=8)
     model = Model(cfg)
     params_cpu = model.init(seed, device="cpu")
     prompts = rng.integers(1, cfg.vocab_size, size=(2, 16))
@@ -459,7 +473,9 @@ def ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_varia
     ops.reset_launches()
     got = ring_tokens(torch, model, tree_to(params_cpu, "cuda"), prompts, 12, "cuda")
     counts = ops.launches()
-    expect = {"decode_attention": 12 * cfg.num_layers, "flash_attention": cfg.num_layers,
+    gqa = cfg.attention_kind == "gqa"
+    expect = {"decode_attention": 12 * cfg.num_layers * gqa,
+              "flash_attention": cfg.num_layers * gqa,
               "paged_decode_attention": 0, "ssm_scan": 0}
     phase("parity", config=f"{cfg.name}-ring{cfg.sliding_window}", backend="ring",
           cpu_tokens=want, cuda_tokens=got, launches=json.dumps(counts))
@@ -524,16 +540,22 @@ def ring_main(torch, ops, Model, long_context_variant, cfg, params, rng, window=
 
 
 
-def init_main(torch, Model, flatten, cfg, seed):
-    """A config's model and its random bf16 weights from ``seed``, on the card."""
+def init_main(torch, Model, flatten, cfg, seed, full=None):
+    """A config's model and its random bf16 weights from ``seed``, on the
+    card; ``full``, the uncut config, when ``cfg``'s depth was cut."""
     model = Model(cfg)
     t0 = time.monotonic()
     params = model.init(seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in flatten(params).values())
+    cut = {} if full is None else dict(
+        depth_cut=f"{full.num_layers}->{cfg.num_layers}",
+        full_params=f"{full.param_count():.0f}",
+        full_weight_gb=f"{full.param_count() * 2 / 1e9:.2f}")
     phase("init", config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
           dtype=cfg.dtype, params=n_params,
-          weight_gb=f"{n_params * 2 / 1e9:.2f}", seconds=f"{time.monotonic() - t0:.1f}")
+          weight_gb=f"{n_params * 2 / 1e9:.2f}", seconds=f"{time.monotonic() - t0:.1f}",
+          **cut)
     return model, params
 
 
@@ -726,15 +748,19 @@ def main() -> None:
         check_decode(torch, ops, dec_mod, torch.bfloat16, rng, cfg, 8, 2048)
 
     # 4. whole-path parity: the card's kernels against the CPU's plain path ----
-    for arch, backend in (("qwen3-8b", "paged"), ("qwen3-8b", "flat"),
-                          ("mamba2-370m", "flat"), ("zamba2-1.2b", "paged"),
-                          ("zamba2-1.2b", "flat"), ("granite-20b", "paged"),
-                          ("granite-20b", "flat"), ("phi4-mini-3.8b", "paged"),
-                          ("phi4-mini-3.8b", "flat"), ("llama3-405b", "paged"),
-                          ("llama3-405b", "flat"), ("internvl2-1b", "paged"),
-                          ("internvl2-1b", "flat"), ("musicgen-large", "paged"),
-                          ("musicgen-large", "flat")):
-        scfg = get_smoke_config(arch, dtype="float32")
+    # the deepseek-v2 smoke config with GQA in place of MLA: MoE blocks
+    # between flash and the paged or flat decode kernels
+    gqa_moe = dataclasses.replace(get_smoke_config("deepseek-v2-236b", dtype="float32"),
+                                  attention_kind="gqa", name="deepseek-v2-smoke-gqa")
+    parity_runs = [(get_smoke_config(arch, dtype="float32"), backend) for arch, backend in (
+        ("qwen3-8b", "paged"), ("qwen3-8b", "flat"), ("mamba2-370m", "flat"),
+        ("zamba2-1.2b", "paged"), ("zamba2-1.2b", "flat"), ("granite-20b", "paged"),
+        ("granite-20b", "flat"), ("phi4-mini-3.8b", "paged"), ("phi4-mini-3.8b", "flat"),
+        ("llama3-405b", "paged"), ("llama3-405b", "flat"), ("internvl2-1b", "paged"),
+        ("internvl2-1b", "flat"), ("musicgen-large", "paged"), ("musicgen-large", "flat"),
+        ("deepseek-v2-236b", "flat"), ("deepseek-v3-671b", "flat"))]
+    parity_runs += [(gqa_moe, "paged"), (gqa_moe, "flat")]
+    for scfg, backend in parity_runs:
         smodel = Model(scfg)
         params_cpu = smodel.init(args.seed, device="cpu")
         params_gpu = tree_to(params_cpu, "cuda")
@@ -744,7 +770,8 @@ def main() -> None:
         ops.reset_launches()
         got = staggered_tokens(Engine, Request, smodel, params_gpu, prompts, 6, backend)
         counts = ops.launches()
-        attends = scfg.arch_type != "ssm"
+        # MLA is plain torch, as in the reference: it launches no kernel
+        attends = scfg.arch_type != "ssm" and scfg.attention_kind == "gqa"
         uses = {"decode_attention": attends and backend == "flat",
                 "flash_attention": attends,
                 "paged_decode_attention": attends and backend == "paged",
@@ -756,8 +783,12 @@ def main() -> None:
         if any(counts[k] == 0 for k, used in uses.items() if used):
             fail(f"{scfg.name} {backend}: parity run did not launch every kernel it uses: "
                  f"{counts}")
-    ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_variant, rng,
-                args.seed)
+        if any(counts[k] for k, used in uses.items() if not used):
+            fail(f"{scfg.name} {backend}: parity run launched a kernel it does not use: "
+                 f"{counts}")
+    for arch in ("qwen3-8b", "deepseek-v2-236b"):
+        ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_variant, rng,
+                    args.seed, arch)
 
     # 5. main paths at full width, each followed by its profile (6) -----------------
     serve = (torch, ops, Engine, Request, run_closed_loop,
@@ -838,6 +869,25 @@ def main() -> None:
         del model, params, _
         torch.cuda.empty_cache()
 
+    # deepseek-v2-236b at full width, depth cut to DSV2_LAYERS: MLA on the
+    # flat latent cache and the routed experts are plain torch, as in the
+    # reference, so the run launches none of the four kernels
+    dsv2_full = get_config("deepseek-v2-236b")
+    dsv2 = get_config("deepseek-v2-236b", num_layers=DSV2_LAYERS)
+    phase("memory", before=dsv2.name,
+          allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    model, params = init_main(torch, Model, flatten, dsv2, args.seed, full=dsv2_full)
+    engine, c, rng = serve_main(
+        *serve, model, params, args.seed, "auto", "flat",
+        lambda admits, steps: {"decode_attention": 0, "flash_attention": 0,
+                               "paged_decode_attention": 0, "ssm_scan": 0})
+    counts.append(c)
+    profile_decode(torch, engine, dsv2, rng, Request,
+                   {"matmul": MATMUL_NAMES,
+                    "moe_dispatch": ("index", "radix", "cub", "scatter", "gather")})
+    del engine, model, params
+    torch.cuda.empty_cache()
+
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)
     launches = {k: sum(c[k] for c in counts) for k in counts[0]}
@@ -880,11 +930,17 @@ def kernel_families(events, families):
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma")
 
 
-def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
+DECODE_FAMILIES = {"decode_attention": ("decode_split", "decode_merge_kernel"),
+                   "paged_attention": ("paged_split", "paged_merge"),
+                   "matmul": MATMUL_NAMES}
+
+
+def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
+                   steps: int = 8) -> None:
     """Fill every slot, time ``steps`` decode steps on the host clock, then
-    trace as many more with torch.profiler: device time by kernel family,
-    the device's idle share of the untraced step time, and the top rows of
-    the profiler's table."""
+    trace as many more with torch.profiler: device time by kernel family
+    (``families`` as kernel_families takes them), the device's idle share
+    of the untraced step time, and the top rows of the profiler's table."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(engine.batch):
@@ -903,9 +959,7 @@ def profile_decode(torch, engine, cfg, rng, Request, steps: int = 8) -> None:
             engine.step()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    families, n_kernels = kernel_families(
-        events, {"decode_attention": ("decode_split", "decode_merge_kernel"),
-                 "paged_attention": ("paged_split", "paged_merge"), "matmul": MATMUL_NAMES})
+    families, n_kernels = kernel_families(events, families)
     busy_ms = sum(families.values()) / steps / 1e3
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",

@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference (``repro``), importing nothing
 of it.  It serves the architectures of :mod:`repro_torch.configs` (dense,
-SSM, hybrid, vlm and audio) through the same entry points:
+MoE with MLA, SSM, hybrid, vlm and audio) through the same entry points:
 :class:`repro_torch.serving.Engine` (``admit`` runs a batch-1 prefill into
 pages, ``step`` runs ragged paged decode), :func:`repro_torch.serving.run_closed_loop`
 and ``python -m repro_torch.launch.serve``.  The kernels on those paths

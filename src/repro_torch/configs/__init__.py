@@ -1,12 +1,13 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
-The port's own copy of the JAX package's registry, holding the
-architectures the port serves so far: qwen3-8b, phi4-mini-3.8b and
-llama3-405b (dense GQA), mamba2-370m (pure SSM), zamba2-1.2b (Mamba2 with
-a shared attention block), granite-20b (dense, MQA, GELU MLP), and
-internvl2-1b (vlm) and musicgen-large (audio), the dense block stack fed
-by a stub frontend.  Each module cites its source model card; ``smoke``
-variants are reduced same-family configs used by the CPU tests.
+The port's own copy of the JAX package's registry, holding all ten of its
+architectures: qwen3-8b, phi4-mini-3.8b and llama3-405b (dense GQA),
+mamba2-370m (pure SSM), zamba2-1.2b (Mamba2 with a shared attention
+block), granite-20b (dense, MQA, GELU MLP), internvl2-1b (vlm) and
+musicgen-large (audio), the dense block stack fed by a stub frontend, and
+deepseek-v2-236b and deepseek-v3-671b (MoE with MLA attention).  Each
+module cites its source model card; ``smoke`` variants are reduced
+same-family configs used by the CPU tests.
 :func:`long_context_variant` is the reference's sliding-window variant,
 which gives ring caches.
 """
@@ -28,6 +29,8 @@ _MODULES: Dict[str, str] = {
     "llama3-405b": "llama3_405b",
     "internvl2-1b": "internvl2_1b",
     "musicgen-large": "musicgen_large",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

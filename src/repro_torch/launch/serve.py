@@ -24,6 +24,13 @@ slices (default 7, the whole card), and the correction is printed.
       --backend flat --batch 8 --max-len 2048            # 20 B parameters, one card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \\
       --device cpu --size 3                              # vlm smoke config, 3g profile
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --device cpu                                       # MoE + MLA smoke config, flat KV
+
+MLA models (deepseek-v2-236b, deepseek-v3-671b) serve on the flat latent
+cache only: ``--backend auto`` takes it and ``--backend paged`` fails.
+Their full configs, like llama3-405b's, fit no card, and the profile
+prices the full config, so their §8.3 correction stays 1.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
-"""GQA attention (with qk-norm and RoPE): prefill, flat decode (full or
-sliding-window ring cache) and paged decode.
+"""Attention: GQA (with qk-norm and RoPE) with prefill, flat decode (full
+or sliding-window ring cache) and paged decode; and MLA (DeepSeek's
+multi-head latent attention) with prefill and a weight-absorbed decode
+over the flat or ring latent cache.
 
-The port of the GQA part of the JAX package's ``models/attention.py``.
+The port of the JAX package's ``models/attention.py``.
 Decode is *ragged*: ``pos`` is a per-request ``(B,)`` vector of positions,
 and negative positions mark idle slots whose cache writes are skipped.
 
@@ -15,6 +17,7 @@ Caches carry no layer axis here; the transformer stacks them.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -221,3 +224,160 @@ def gqa_decode_paged(
     lengths[rows] = (cpos[rows] + 1).to(torch.int32)
     o = ops.paged_decode_attention(q, pool_k, pool_v, page_tables, lengths)
     return o.reshape(B, 1, H * hd) @ p["wo"], cache
+
+
+# -- MLA (DeepSeek multi-head latent attention) --------------------------------
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, H = cfg.d_model, cfg.num_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    specs: Dict[str, ParamSpec] = {}
+    if qr:
+        specs["w_dq"] = ((d, qr), "normal", None)
+        specs["q_norm"] = ((qr,), "ones", None)
+        specs["w_uq"] = ((qr, H * (nd + rd)), "normal", None)
+    else:
+        specs["w_uq"] = ((d, H * (nd + rd)), "normal", None)
+    specs["w_dkv"] = ((d, r + rd), "normal", None)
+    specs["kv_norm"] = ((r,), "ones", None)
+    specs["w_uk"] = ((r, H * nd), "normal", None)
+    specs["w_uv"] = ((r, H * vd), "normal", None)
+    specs["wo"] = ((H * vd, d), "normal", None)
+    return specs
+
+
+def _mla_q(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The query's no-RoPE and RoPE parts, (B, S, H, nd) and (B, S, H, rd)."""
+    B, S, _ = x.shape
+    H, nd, rd = cfg.num_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps) if cfg.q_lora_rank else x
+    q = (cq @ p["w_uq"]).reshape(B, S, H, nd + rd)
+    return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def _mla_latent(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The compressed KV ``ckv`` (B, S, r) and the shared rotary key
+    ``krope`` (B, S, rd)."""
+    r = cfg.kv_lora_rank
+    dkv = x @ p["w_dkv"]
+    ckv = rmsnorm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    krope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
+    return ckv, krope
+
+
+def _mla_attend(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence MLA with the latent expanded into per-head K/V; returns
+    (out, ckv, krope)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv, krope = _mla_latent(p, cfg, x, positions)
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, nd)
+    v = (ckv @ p["w_uv"]).reshape(B, S, H, vd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
+    o = kernels_bridge.causal_attention(
+        q, k, v, window=cfg.sliding_window, scale=1.0 / math.sqrt(nd + rd)
+    )
+    return o.reshape(B, S, H * vd) @ p["wo"], ckv, krope
+
+
+def mla_forward(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """Full-sequence causal MLA without a cache (the training path)."""
+    return _mla_attend(p, cfg, x, positions)[0]
+
+
+def mla_prefill(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence MLA that also emits the latent decode cache: the whole
+    ``ckv``/``krope``, or the ring of their last ``W`` rows with
+    ``slot_pos`` when the window is shorter than the sequence (``S`` a
+    multiple of ``W``, as in :func:`gqa_prefill`)."""
+    B, S, _ = x.shape
+    W = cfg.sliding_window
+    if W and W < S and S % W:
+        raise ValueError(f"prefill length {S} must be a multiple of the ring window {W}")
+    out, ckv, krope = _mla_attend(p, cfg, x, positions)
+    if W and W < S:
+        slot_pos = torch.arange(S - W, S, dtype=torch.int32, device=x.device)
+        return out, {"ckv": ckv[:, S - W:], "krope": krope[:, S - W:],
+                     "slot_pos": slot_pos.expand(B, W)}
+    return out, {"ckv": ckv, "krope": krope}
+
+
+def mla_init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """The latent decode cache, ``(B, rows, r)`` and ``(B, rows, rd)``:
+    ``max_len`` rows, or a ring of ``W`` with ``slot_pos`` -1 (empty)."""
+    r, rd = cfg.kv_lora_rank, cfg.rope_head_dim
+    W = cfg.sliding_window
+    rows = W if W and W < max_len else max_len
+    cache = {
+        "ckv": torch.zeros((batch, rows, r), dtype=dtype, device=device),
+        "krope": torch.zeros((batch, rows, rd), dtype=dtype, device=device),
+    }
+    if rows < max_len:
+        cache["slot_pos"] = torch.full((batch, rows), -1, dtype=torch.int32, device=device)
+    return cache
+
+
+def mla_decode(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: Dict[str, torch.Tensor],
+    pos,  # (B,) per-slot position of the new token (or scalar)
+    live: Optional[torch.Tensor] = None,  # (B,) bool or indices; None => pos >= 0
+    valid: Optional[torch.Tensor] = None,  # (B, S) prefix mask of a full cache
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weight-absorbed one-token decode: ``w_uk`` folds into the query and
+    ``w_uv`` into the output, so scores and reads stay in the latent space
+    and the cache holds ``r + rd`` numbers a token.  The ring and the
+    validity follow :func:`gqa_decode`.  The softmax is the reference's,
+    masked with -1e30, so a row with no valid entry averages the latent
+    as the reference's does."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nd, rd, vd, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    cpos, derived_live = normalize_pos(pos, B, x.device)
+    live = derived_live if live is None else live
+    q_nope, q_rope = _mla_q(p, cfg, x, cpos[:, None])  # (B,1,H,nd), (B,1,H,rd)
+    ckv_new, krope_new = _mla_latent(p, cfg, x, cpos[:, None])
+    ckv, krope = cache["ckv"], cache["krope"]
+    if "slot_pos" in cache:
+        W = ckv.shape[1]
+        slot = cpos % W
+        _masked_row_update(ckv, ckv_new, slot, live)
+        _masked_row_update(krope, krope_new, slot, live)
+        rows = live_rows(live)
+        slot_pos = cache["slot_pos"]
+        slot_pos[rows, slot[rows]] = cpos[rows].to(slot_pos.dtype)
+        c = cpos[:, None]
+        valid = (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
+    else:
+        _masked_row_update(ckv, ckv_new, cpos, live)
+        _masked_row_update(krope, krope_new, cpos, live)
+        if valid is None:
+            valid = prefix_valid(cpos, ckv.shape[1])
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"].reshape(r, H, nd))
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, krope))
+    scores = scores.float() / math.sqrt(nd + rd)
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    o_latent = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # (B, 1, H, r)
+    o = torch.einsum("bqhr,rhv->bqhv", o_latent, p["w_uv"].reshape(r, H, vd))
+    return o.reshape(B, 1, H * vd) @ p["wo"], cache

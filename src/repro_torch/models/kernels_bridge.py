@@ -8,7 +8,10 @@ kernel's plain version on the CPU.
 * ``causal_attention`` takes the flash kernel at any sequence length (the
   JAX bridge takes its kernel only when ``S % 128 == 0``; this kernel
   masks the ragged tail, so the engine's 16-token prefill buckets use it
-  too).
+  too).  When q's head dim differs from v's (MLA: nope + rope against
+  v), it takes the reference's plain attention instead, on every device,
+  as the reference routes MLA away from its kernel: the whole score
+  matrix up to ``q_block`` query rows, blocked over query tiles beyond.
 * ``decode_attention`` is the flat cache's decode (prefix or ring mask),
   so the flat KV backend runs the decode kernel on a card; the JAX package
   sets ``use_kernels`` on no serving path and takes its jnp einsum there.
@@ -19,6 +22,7 @@ kernel's plain version on the CPU.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,17 +30,52 @@ import torch
 from repro_torch.kernels import ops
 
 
+def _naive_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,  # (B, Skv, KV, vd)
+    window: Optional[int],
+    scale: float,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """The reference's plain causal attention for query rows ``q_offset``
+    on: float32 scores masked with -1e30, softmax cast to v's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    q5 = q.reshape(B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() * scale
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kj = torch.arange(Skv, device=q.device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    scores = scores.masked_fill(~ok, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return o.reshape(B, Sq, H, v.shape[-1])
+
+
 def causal_attention(
     q: torch.Tensor,  # (B, S, H, hd)
     k: torch.Tensor,  # (B, S, KV, hd)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, S, KV, vd)
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    q_block: int = 1024,
 ) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention, (B, S, H, hd) layout."""
-    if q.shape[-1] != v.shape[-1]:
-        raise NotImplementedError("q and v head dims differ (MLA is not ported)")
-    return ops.flash_attention(q, k, v, window=window, scale=scale)
+    """Causal (optionally sliding-window) attention, (B, S, H, vd) layout.
+    Equal q and v head dims take the flash kernel; unequal ones (MLA) the
+    plain path, whose score tile never exceeds ``q_block`` query rows."""
+    if q.shape[-1] == v.shape[-1]:
+        return ops.flash_attention(q, k, v, window=window, scale=scale)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    S = q.shape[1]
+    if S <= q_block:
+        return _naive_attention(q, k, v, window, scale)
+    return torch.cat([
+        _naive_attention(q[:, i:i + q_block], k, v, window, scale, q_offset=i)
+        for i in range(0, S, q_block)
+    ], dim=1)
 
 
 def decode_attention(

@@ -11,8 +11,10 @@ from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
 
 
-def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
+    """``d_ff`` overrides the config's width (the MoE shared experts are one
+    SwiGLU of ``moe_d_ff * num_shared_experts``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     specs: Dict[str, ParamSpec] = {}
     if cfg.mlp_gated:
         specs["w_gate"] = ((d, ff), "normal", None)

@@ -1,21 +1,28 @@
-"""Config-driven decoder models: dense GQA, Mamba2 SSM and the Zamba2 hybrid.
+"""Config-driven decoder models: dense, MoE, Mamba2 SSM and the Zamba2 hybrid.
 
-The port of the JAX package's ``models/transformer.py`` for three
-architecture families:
+The port of the JAX package's ``models/transformer.py`` for every
+architecture family:
 
-  * dense, vlm, audio : a stack of (GQA attention + MLP) blocks, SwiGLU or
+  * dense, vlm, audio : a stack of (attention + MLP) blocks, SwiGLU or
              GELU (vlm and audio are the dense stack behind a stub
              frontend, whose embeddings ``prefill(embeds=)`` takes);
+  * moe    : ``first_dense_layers`` unrolled dense blocks (``dense_{i}``),
+             then a stack of (attention + MoE) blocks; DeepSeek-V3's
+             ``mtp/*`` parameters are created (training uses them, serving
+             does not);
   * ssm    : a stack of Mamba2 blocks;
   * hybrid : superblocks of ``shared_attn_every`` Mamba2 sublayers followed
-             by one call of a single weight-shared GQA block (one weight
-             set, ``shared_attn/...``, but one KV cache per superblock; no
-             MLP).
+             by one call of a single weight-shared attention block (one
+             weight set, ``shared_attn/...``, but one KV cache per
+             superblock; no MLP).
+
+Attention is GQA or MLA, by ``attention_kind``, in every family, as in the
+reference; MLA keeps the flat (or ring) latent cache and has no paged one.
 
 Methods: ``init``, ``embed``, ``logits``, ``prefill``, ``init_cache`` /
 ``decode_step`` (flat KV; a ring of ``sliding_window`` rows when the
 window is shorter than ``max_len``), ``init_paged_cache`` /
-``decode_step_paged`` (paged KV; dense and hybrid, no window) and
+``decode_step_paged`` (paged KV; GQA without a window) and
 ``scatter_prefill``.  Parameters are a plain nested dict with the JAX key
 tree; per-layer (or per-superblock) parameters are stacked along a
 leading axis, and the JAX ``lax.scan`` over that axis becomes a Python
@@ -34,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     DTYPES, ParamSpec, init_params, resolve_device, rmsnorm,
@@ -46,6 +54,23 @@ Device = Union[str, torch.device]
 
 # arch types served as the dense block stack, as the reference's are
 DENSE_TYPES = ("dense", "vlm", "audio")
+# arch types built of (attention + MLP or MoE) blocks
+BLOCK_TYPES = DENSE_TYPES + ("moe",)
+
+
+def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return attn.mla_specs(cfg) if cfg.attention_kind == "mla" else attn.gqa_specs(cfg)
+
+
+def _attn_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor):
+    if cfg.attention_kind == "mla":
+        return attn.mla_prefill(p, cfg, h, positions)
+    return attn.gqa_prefill(p, cfg, h, positions)
+
+
+def _attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device):
+    make = attn.mla_init_cache if cfg.attention_kind == "mla" else attn.gqa_init_cache
+    return make(cfg, batch, max_len, DTYPES[cfg.dtype], device)
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -80,15 +105,10 @@ class Model:
         cfg = self.cfg
         # ``modality`` names the frontend only: the reference's model reads
         # embeddings or token ids the same way for every modality
-        served = (
-            (cfg.arch_type in DENSE_TYPES + ("hybrid",) and cfg.attention_kind == "gqa")
-            or (cfg.arch_type == "ssm" and cfg.attention_kind == "none")
-        )
-        if not served:
+        if cfg.arch_type != "ssm" and cfg.attention_kind not in ("gqa", "mla"):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense (text, vlm, audio) GQA, SSM and hybrid "
-                f"models only (arch_type={cfg.arch_type!r}, "
-                f"attention_kind={cfg.attention_kind!r})"
+                f"{cfg.name}: attention_kind={cfg.attention_kind!r} is served only by "
+                "the pure SSM family"
             )
         if cfg.arch_type == "hybrid" and (
             cfg.shared_attn_every < 1 or cfg.num_layers % cfg.shared_attn_every
@@ -100,11 +120,23 @@ class Model:
 
     @property
     def depth(self) -> int:
-        """Length of the stacked ``layers`` axis: layers, or superblocks."""
+        """Length of the stacked ``layers`` axis: layers, superblocks, or
+        the MoE blocks after the unrolled dense ones."""
         cfg = self.cfg
         if cfg.arch_type == "hybrid":
             return cfg.num_layers // cfg.shared_attn_every
-        return cfg.num_layers
+        return cfg.num_layers - self.n_dense
+
+    @property
+    def n_dense(self) -> int:
+        """The MoE family's unrolled ``dense_{i}`` blocks (0 elsewhere)."""
+        return self.cfg.first_dense_layers if self.cfg.arch_type == "moe" else 0
+
+    def _blocks(self, tree: Params) -> List[Params]:
+        """Per-block views of a parameter or cache tree, in order: the
+        unrolled ``dense_{i}`` blocks, then each layer of the stack."""
+        return ([tree[f"dense_{i}"] for i in range(self.n_dense)]
+                + [_layer(tree["layers"], i) for i in range(self.depth)])
 
     # ------------------------------------------------------------------ init --
     def param_specs(self) -> Dict[str, ParamSpec]:
@@ -119,23 +151,33 @@ class Model:
             specs["head"] = ((d, cfg.padded_vocab), "normal", None)
         specs["final_norm"] = ((d,), "ones", None)
         ln: ParamSpec = ((d,), "ones", None)
+
+        def attn_block(ffn: str, ffn_specs: Dict[str, ParamSpec]) -> Dict[str, ParamSpec]:
+            return {"ln1": ln, **{f"attn/{k}": s for k, s in _attn_specs(cfg).items()},
+                    "ln2": ln, **{f"{ffn}/{k}": s for k, s in ffn_specs.items()}}
+
         block: Dict[str, ParamSpec] = {}
         if cfg.arch_type in DENSE_TYPES:
-            block["ln1"] = ln
-            block.update({f"attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
-            block["ln2"] = ln
-            block.update({f"mlp/{k}": s for k, s in mlp_specs(cfg).items()})
+            block = attn_block("mlp", mlp_specs(cfg))
+        elif cfg.arch_type == "moe":
+            for i in range(self.n_dense):
+                specs.update({f"dense_{i}/{k}": s
+                              for k, s in attn_block("mlp", mlp_specs(cfg)).items()})
+            block = attn_block("moe", moe_mod.moe_specs(cfg))
         elif cfg.arch_type == "ssm":
             block["ln"] = ln
             block.update(ssm_mod.ssm_specs(cfg))
         else:  # hybrid
             specs["shared_attn/ln"] = ln
-            specs.update({f"shared_attn/{k}": s for k, s in attn.gqa_specs(cfg).items()})
+            specs.update({f"shared_attn/{k}": s for k, s in _attn_specs(cfg).items()})
             for i in range(cfg.shared_attn_every):
                 block[f"mamba_{i}/ln"] = ln
                 block.update({f"mamba_{i}/{k}": s for k, s in ssm_mod.ssm_specs(cfg).items()})
         for k, (shape, init, scale) in block.items():
             specs[f"layers/{k}"] = ((self.depth,) + shape, init, scale)
+        if cfg.mtp:
+            specs["mtp/proj"] = ((2 * d, d), "normal", None)
+            specs["mtp/norm"] = ((d,), "ones", None)
         return specs
 
     def init(self, seed: int = 0, device: Device = "cuda") -> Params:
@@ -159,8 +201,12 @@ class Model:
             out[..., cfg.vocab_size:] = -1e30
         return out
 
-    def _mlp_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    def _ffn_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+        """A block's second half: its MLP, or its MoE (the aux loss is for
+        training and is dropped here, as the reference's serving drops it)."""
         h = rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
+        if "moe" in lp:
+            return x + moe_mod.moe_forward(lp["moe"], self.cfg, h)[0]
         return x + mlp_forward(lp["mlp"], h)
 
     # ---------------------------------------------------------------- prefill --
@@ -187,11 +233,10 @@ class Model:
         positions = torch.arange(S, device=x.device).expand(B, S)
         eps = cfg.norm_eps
         caches = []
-        for i in range(self.depth):
-            lp = _layer(params["layers"], i)
-            if cfg.arch_type in DENSE_TYPES:
-                a, c = attn.gqa_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
-                x = self._mlp_residual(lp, x + a)
+        for lp in self._blocks(params):
+            if cfg.arch_type in BLOCK_TYPES:
+                a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
+                x = self._ffn_residual(lp, x + a)
             elif cfg.arch_type == "ssm":
                 y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
                 x = x + y
@@ -204,12 +249,13 @@ class Model:
                     )
                     x = x + y
                 shared = params["shared_attn"]
-                a, c["attn"] = attn.gqa_prefill(
+                a, c["attn"] = _attn_prefill(
                     shared, cfg, rmsnorm(x, shared["ln"], eps), positions
                 )
                 x = x + a
             caches.append(c)
-        cache = {"layers": _stack(caches)}
+        cache = {f"dense_{i}": caches[i] for i in range(self.n_dense)}
+        cache["layers"] = _stack(caches[self.n_dense:])
         if lengths is None:
             last = x[:, -1:]
         else:
@@ -222,7 +268,7 @@ class Model:
         the attention part (flat or paged)."""
         cfg = self.cfg
         dtype = DTYPES[cfg.dtype]
-        if cfg.arch_type in DENSE_TYPES:
+        if cfg.arch_type in BLOCK_TYPES:
             return attn_cache()
         if cfg.arch_type == "ssm":
             return ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
@@ -233,13 +279,18 @@ class Model:
         c["attn"] = attn_cache()
         return c
 
+    def _stacked_cache(self, batch: int, device: torch.device, attn_cache) -> Params:
+        """Every block's cache: one tree per unrolled ``dense_{i}`` block,
+        then the ``layers`` stack."""
+        out = {f"dense_{i}": attn_cache() for i in range(self.n_dense)}
+        out["layers"] = _repeat_stacked(self._layer_cache(batch, device, attn_cache), self.depth)
+        return out
+
     def init_cache(self, batch: int, max_len: int, device: Device = "cuda") -> Params:
-        cfg = self.cfg
         dev = resolve_device(device)
-        one = self._layer_cache(
-            batch, dev, lambda: attn.gqa_init_cache(cfg, batch, max_len, DTYPES[cfg.dtype], dev)
+        return self._stacked_cache(
+            batch, dev, lambda: _attn_init_cache(self.cfg, batch, max_len, dev)
         )
-        return {"layers": _repeat_stacked(one, self.depth)}
 
     def decode_step(
         self, params: Params, cache: Params, token: torch.Tensor, pos
@@ -272,16 +323,18 @@ class Model:
         :class:`~repro_torch.serving.paged_cache.PagePool` before each step."""
         cfg = self.cfg
         if not self.supports_paged_kv:
-            raise ValueError(f"paged KV unsupported for {cfg.name}")
+            raise ValueError(
+                f"paged KV unsupported for {cfg.name}: arch_type={cfg.arch_type!r}, "
+                f"attention_kind={cfg.attention_kind!r}, "
+                f"sliding_window={cfg.sliding_window!r}"
+            )
         dev = resolve_device(device)
-        one = self._layer_cache(
+        out = {"page_tables": torch.zeros((batch, max_pages), dtype=torch.int32, device=dev)}
+        out.update(self._stacked_cache(
             batch, dev,
             lambda: attn.gqa_init_paged_cache(cfg, num_pages, page_size, DTYPES[cfg.dtype], dev),
-        )
-        return {
-            "page_tables": torch.zeros((batch, max_pages), dtype=torch.int32, device=dev),
-            "layers": _repeat_stacked(one, self.depth),
-        }
+        ))
+        return out
 
     def decode_step_paged(
         self, params: Params, cache: Params, token: torch.Tensor, pos
@@ -304,20 +357,20 @@ class Model:
         if not paged and cfg.arch_type != "ssm":
             kv = cache["layers"].get("attn", cache["layers"])
             if "slot_pos" not in kv:
-                valid = attn.prefix_valid(pos, kv["k"].shape[2])
+                rows_of = kv["ckv"] if cfg.attention_kind == "mla" else kv["k"]
+                valid = attn.prefix_valid(pos, rows_of.shape[2])
+        decode = attn.mla_decode if cfg.attention_kind == "mla" else attn.gqa_decode
 
         def attend(p, h, lc):
             if paged:
                 return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos, rows)[0]
-            return attn.gqa_decode(p, cfg, h, lc, pos, rows, valid)[0]
+            return decode(p, cfg, h, lc, pos, rows, valid)[0]
 
         x = self.embed(params, token)
-        for i in range(self.depth):
-            lp = _layer(params["layers"], i)
-            lc = _layer(cache["layers"], i)
-            if cfg.arch_type in DENSE_TYPES:
+        for lp, lc in zip(self._blocks(params), self._blocks(cache)):
+            if cfg.arch_type in BLOCK_TYPES:
                 a = attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc)
-                x = self._mlp_residual(lp, x + a)
+                x = self._ffn_residual(lp, x + a)
             elif cfg.arch_type == "ssm":
                 y, _ = ssm_mod.ssm_decode(lp, cfg, rmsnorm(x, lp["ln"], eps), lc, rows)
                 x = x + y

@@ -21,7 +21,9 @@ Two KV backends:
   step runs the flat decode-attention CUDA kernel on a card over each
   slot's prefix.  The tests hold the paged path against it.  A pure SSM
   model has no growing KV to page: it always takes this backend (its
-  per-slot conv tail and state), ``paged`` included.
+  per-slot conv tail and state), ``paged`` included.  MLA's latent cache
+  has no paged layout: ``auto`` takes this backend and ``paged`` raises,
+  as in the reference.
 
 A sliding window shorter than ``max_len`` (a ring cache) is refused, as
 in the reference, which drives ring caches through ``Model.prefill`` and
@@ -51,6 +53,8 @@ from repro_torch.serving.paged_cache import OutOfPages, PagePool, page_bytes
 # masked-out attention rows, true-last-token logits), the reference's
 # bucket; SSM and hybrid models pad to ``cfg.ssm_chunk`` instead, which
 # the chunked scan needs (dt-masked padding keeps their states exact).
+# MoE prompts are not padded: padding tokens would compete with the real
+# ones for expert capacity.
 PREFILL_BUCKET = 16
 
 
@@ -165,7 +169,12 @@ class Engine:
             self.cache = model.init_cache(batch, max_len, device=self.device)
             self._decode = model.decode_step
         self._prefill = lambda p, toks, lens: model.prefill(p, toks, lengths=lens)
-        self.pad_to = cfg.ssm_chunk if cfg.arch_type in ("ssm", "hybrid") else PREFILL_BUCKET
+        if cfg.arch_type in ("ssm", "hybrid"):
+            self.pad_to = cfg.ssm_chunk
+        elif cfg.arch_type == "moe":
+            self.pad_to = 1
+        else:
+            self.pad_to = PREFILL_BUCKET
 
     # -- introspection --------------------------------------------------------
     def has_free_slot(self) -> bool:

@@ -2,6 +2,7 @@
 reference's engine tests replayed on the port, the port's tokens against
 the JAX engine's on the same bridged weights, and admission control."""
 
+import dataclasses
 import json
 import time
 
@@ -14,6 +15,7 @@ torch.set_num_threads(2)
 import jax  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.serving import Engine as JaxEngine  # noqa: E402
 from repro.serving import Request as JaxRequest  # noqa: E402
@@ -29,26 +31,40 @@ from repro_torch.serving import (  # noqa: E402
 )
 
 ARCH = "qwen3-8b"
+# the deepseek-v2 smoke config with GQA in place of MLA (the MoE family on
+# the paged backend)
+GQA_MOE = "deepseek-v2-236b+gqa"
+MLA_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b")
 ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b", "phi4-mini-3.8b", "llama3-405b",
-         "internvl2-1b", "musicgen-large")
+         "internvl2-1b", "musicgen-large") + MLA_ARCHS + (GQA_MOE,)
+# (backend, arch): MLA's latent cache has no paged layout
+BACKEND_CASES = [(b, a) for a in ARCHS for b in ("flat", "paged")
+                 if b == "flat" or a not in MLA_ARCHS]
 MAX_LEN = 64
 NEW_TOKENS = 6
 _CACHE = {}
 
 
+def variant(get, arch, **overrides):
+    """``get(arch)`` of either package's registry; ``+gqa`` swaps MLA for GQA."""
+    base = arch.removesuffix("+gqa")
+    cfg = get(base, **overrides)
+    return dataclasses.replace(cfg, attention_kind="gqa") if base != arch else cfg
+
+
 def port_model(arch=ARCH):
     """The port's smoke model with its own seeded weights (bf16, as served)."""
     if ("port", arch) not in _CACHE:
-        m = Model(get_smoke_config(arch))
+        m = Model(variant(get_smoke_config, arch))
         _CACHE[("port", arch)] = (m, m.init(0, device="cpu"))
     return _CACHE[("port", arch)]
 
 
 def bridged_fp32(arch=ARCH):
     if ("bridged", arch) not in _CACHE:
-        jm = JaxModel(jax_smoke(arch, dtype="float32"), remat=False)
+        jm = JaxModel(variant(jax_smoke, arch, dtype="float32"), remat=False)
         jp, _ = jm.init(jax.random.PRNGKey(0))
-        m = Model(get_smoke_config(arch, dtype="float32"))
+        m = Model(variant(get_smoke_config, arch, dtype="float32"))
         _CACHE[("bridged", arch)] = (
             jm, jp, m, params_from_jax(_flatten(jp), m.cfg, device="cpu"))
     return _CACHE[("bridged", arch)]
@@ -67,8 +83,7 @@ def solo_tokens(m, params, prompt, new_tokens=NEW_TOKENS):
     return list(req.out_tokens)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("backend", ["flat", "paged"])
+@pytest.mark.parametrize("backend,arch", BACKEND_CASES)
 def test_ragged_oracle_staggered_admits(backend, arch):
     """Three requests of different prompt lengths, admitted at staggered
     steps: every request's tokens equal its solo decode ("paged" gives the
@@ -90,8 +105,7 @@ def test_ragged_oracle_staggered_admits(backend, arch):
         assert req.out_tokens == want, (req.rid, req.out_tokens, want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("backend", ["flat", "paged"])
+@pytest.mark.parametrize("backend,arch", BACKEND_CASES)
 def test_ragged_oracle_slot_reuse(backend, arch):
     """More requests than slots: freed slots are re-admitted at new offsets
     and the oracle still holds for every request."""
@@ -106,8 +120,7 @@ def test_ragged_oracle_slot_reuse(backend, arch):
         assert req.out_tokens == want, (req.rid, req.out_tokens, want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("backend", ["flat", "paged"])
+@pytest.mark.parametrize("backend,arch", BACKEND_CASES)
 def test_tokens_equal_jax_engine_on_bridged_weights(backend, arch):
     """Token for token, the port's engine and the JAX engine agree on the
     same float32 weights, through slot reuse and a 16-token bucket (or
@@ -120,6 +133,70 @@ def test_tokens_equal_jax_engine_on_bridged_weights(backend, arch):
     eng = Engine(m, tp, batch=2, max_len=MAX_LEN, kv_backend=backend)
     assert eng.kv_backend == ("flat" if m.cfg.arch_type == "ssm" else backend)
     run_closed_loop(eng, treqs)
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens, j.out_tokens)
+
+
+def test_moe_prompts_are_not_padded(monkeypatch):
+    """A MoE model's prompt reaches the prefill at its own length (padding
+    tokens would compete for expert capacity); a dense model's is padded to
+    the 16-token bucket."""
+    for arch, want in ((GQA_MOE, [5, 12]), ("deepseek-v2-236b", [5, 12]),
+                       ("qwen3-8b", [16, 16])):
+        m, params = port_model(arch)
+        eng = Engine(m, params, batch=2, max_len=MAX_LEN)
+        seen = []
+        prefill = eng._prefill
+
+        def spy(p, toks, lens, prefill=prefill):
+            seen.append(toks.shape[1])
+            return prefill(p, toks, lens)
+
+        eng._prefill = spy
+        for i, L in enumerate((5, 12)):
+            eng.admit(Request(rid=i, prompt=np.arange(1, L + 1, dtype=np.int32),
+                              max_new_tokens=2))
+        assert eng.pad_to == (1 if m.cfg.arch_type == "moe" else 16)
+        assert seen == want, arch
+
+
+def test_mla_takes_the_flat_backend_and_refuses_paged():
+    """As in the reference: "auto" gives the flat latent cache for MLA, and
+    "paged" raises ValueError, at the engine and at the model."""
+    for arch in MLA_ARCHS:
+        m, params = port_model(arch)
+        assert not m.supports_paged_kv
+        assert Engine(m, params, batch=1, max_len=MAX_LEN).kv_backend == "flat"
+        with pytest.raises(ValueError, match="paged KV unsupported"):
+            Engine(m, params, batch=1, max_len=MAX_LEN, kv_backend="paged")
+        with pytest.raises(ValueError, match="paged KV unsupported"):
+            m.init_paged_cache(1, 4, 16, 2, device="cpu")
+        jm = JaxModel(variant(jax_smoke, arch))
+        with pytest.raises(ValueError, match="paged KV unsupported"):
+            JaxEngine(jm, jm.init(jax.random.PRNGKey(0))[0], batch=1, max_len=MAX_LEN,
+                      kv_backend="paged")
+    m, params = port_model(GQA_MOE)
+    assert Engine(m, params, batch=1, max_len=MAX_LEN).kv_backend == "paged"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", GQA_MOE])
+def test_moe_decode_rows_compete_for_capacity_as_in_the_jax_engine(arch):
+    """Sixteen slots under ``capacity_factor`` 0.25, so a decode step has
+    C = 8 slots an expert for 16 rows and drops assignments: idle rows take
+    part in arrival order, as the reference's do, and the port's tokens
+    equal the JAX engine's through staggered admissions and slot reuse."""
+    jcfg = variant(jax_smoke, arch, dtype="float32", capacity_factor=0.25)
+    cfg = variant(get_smoke_config, arch, dtype="float32", capacity_factor=0.25)
+    assert jmoe.capacity(16, jcfg) == 8
+    jm = JaxModel(jcfg, remat=False)
+    jp, _ = jm.init(jax.random.PRNGKey(0))
+    m = Model(cfg)
+    tp = params_from_jax(_flatten(jp), cfg, device="cpu")
+    prompts = make_prompts(cfg, [3 + (5 * i) % 11 for i in range(20)], seed=9)
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    treqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    jax_run_closed_loop(JaxEngine(jm, jp, batch=16, max_len=MAX_LEN), jreqs)
+    run_closed_loop(Engine(m, tp, batch=16, max_len=MAX_LEN), treqs)
     for j, t in zip(jreqs, treqs):
         assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens, j.out_tokens)
 
@@ -242,7 +319,7 @@ def test_stats_summary_schema_equals_reference():
     assert stats.summary(ARCH) == ref.summary(ARCH)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a != GQA_MOE])
 def test_serve_cli_on_cpu_writes_stats_json(tmp_path, capsys, arch):
     out = tmp_path / "stats.json"
     serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--batch", "2",

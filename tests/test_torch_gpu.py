@@ -340,3 +340,70 @@ def test_ssm_scan_wrapper_raises_on_unsupported_input(cuda):
     with pytest.raises(ValueError, match="contiguous last axis"):
         ops.ssm_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm,
                      chunk=32)
+
+
+# -- MoE and MLA: plain torch on every device, held on the card to the CPU -------
+
+
+def _smoke_block(spec_fn, cfg, seed):
+    from repro_torch.models.common import init_params
+
+    return init_params(spec_fn(cfg), seed, torch.device("cpu"), torch.float32, stacked=())
+
+
+@pytest.mark.parametrize("shape,factor", [((1, 40, 128), 1.25), ((16, 1, 128), 0.25)])
+def test_moe_forward_on_the_card_matches_the_cpu(cuda, shape, factor):
+    """The same float32 weights and inputs: the card's output and aux loss
+    within 1e-4 of the CPU's, dropped assignments (factor 0.25) included,
+    and two runs on the card give the same bits (the accumulating
+    index_put_ adds exact zeros to each slot's one real token)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.common import tree_to
+
+    cfg = get_smoke_config("deepseek-v2-236b", dtype="float32", capacity_factor=factor)
+    p = _smoke_block(tmoe.moe_specs, cfg, 0)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(shape, dtype=np.float32))
+    want, want_aux = tmoe.moe_forward(p, cfg, x)
+    pc = tree_to(p, cuda)
+    got, aux = tmoe.moe_forward(pc, cfg, x.to(cuda))
+    again, _ = tmoe.moe_forward(pc, cfg, x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_mla_decode_on_the_card_matches_the_cpu(cuda, window):
+    """Prefill then four ragged decode steps (slot 2 idle) on the flat or
+    ring latent cache: outputs and caches within 1e-4 of the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.common import tree_to
+
+    cfg = get_smoke_config("deepseek-v2-236b", dtype="float32", sliding_window=window)
+    p = _smoke_block(tattn.mla_specs, cfg, 0)
+    rng = np.random.default_rng(2)
+    B, S = 3, 16
+    x = torch.as_tensor(rng.standard_normal((B, S, cfg.d_model), dtype=np.float32))
+    caches = {}
+    outs = {}
+    for dev in ("cpu", cuda):
+        pd = tree_to(p, dev)
+        _, pre = tattn.mla_prefill(pd, cfg, x.to(dev), torch.arange(S, device=dev).expand(B, S))
+        cache = tattn.mla_init_cache(cfg, B, 32, torch.float32, torch.device(dev))
+        for k in cache:
+            cache[k][:, :pre[k].shape[1]] = pre[k]
+        pos = torch.tensor([S, S - 3, -1], device=dev)
+        outs[str(dev)] = []
+        for t in range(4):
+            xt = torch.as_tensor(np.random.default_rng(10 + t).standard_normal(
+                (B, 1, cfg.d_model), dtype=np.float32)).to(dev)
+            o, cache = tattn.mla_decode(pd, cfg, xt, cache, pos)
+            outs[str(dev)].append(o.cpu())
+            pos = torch.where(pos >= 0, pos + 1, pos)
+        caches[str(dev)] = tree_to(cache, "cpu")
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        torch.testing.assert_close(b[:2], a[:2], atol=1e-4, rtol=1e-4)
+    for k in caches["cpu"]:
+        torch.testing.assert_close(caches[str(cuda)][k], caches["cpu"][k], atol=1e-4, rtol=1e-4)

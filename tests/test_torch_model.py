@@ -1,6 +1,7 @@
-"""The port's configs, weight bridge and models (dense, SSM, hybrid, and
-the vlm/audio dense stacks fed tokens or frontend embeddings) against the
-JAX package's, on the same bridged weights."""
+"""The port's configs, weight bridge and models (dense, SSM, hybrid, MoE
+with MLA or GQA attention, and the vlm/audio dense stacks fed tokens or
+frontend embeddings) against the JAX package's, on the same bridged
+weights."""
 
 import dataclasses
 
@@ -23,11 +24,16 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.common import flatten  # noqa: E402
 
 ARCH = "qwen3-8b"
+# the deepseek-v2 smoke config with GQA in place of MLA: the MoE family on
+# the paged backend and the attention kernels
+GQA_MOE = "deepseek-v2-236b+gqa"
+MOE_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", GQA_MOE)
 ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b", "phi4-mini-3.8b", "llama3-405b",
-         "internvl2-1b", "musicgen-large")
-# a pure SSM model has no KV to page
+         "internvl2-1b", "musicgen-large") + MOE_ARCHS
+# a pure SSM model has no KV to page, nor has MLA's latent cache a paged layout
 PAGED_ARCHS = ("qwen3-8b", "zamba2-1.2b", "phi4-mini-3.8b", "llama3-405b", "internvl2-1b",
-               "musicgen-large")
+               "musicgen-large", GQA_MOE)
+DTYPE_TOLS = (("float32", 1e-4), ("bfloat16", 0.15))
 STUB_ARCHS = ("internvl2-1b", "musicgen-large")  # fed frontend embeddings
 # one key of each new tree, so a renamed leaf fails loudly
 TREE_KEYS = {
@@ -39,17 +45,36 @@ TREE_KEYS = {
     "llama3-405b": ("layers/attn/wv", "layers/mlp/w_down"),
     "internvl2-1b": ("layers/attn/wo", "layers/ln2"),
     "musicgen-large": ("layers/attn/wq", "layers/ln1"),
+    "deepseek-v2-236b": ("dense_0/attn/w_dkv", "dense_0/mlp/w_gate", "layers/attn/w_uk",
+                         "layers/moe/we_gate", "layers/moe/shared/w_up"),
+    "deepseek-v3-671b": ("mtp/proj", "mtp/norm", "layers/attn/q_norm", "layers/moe/router"),
+    GQA_MOE: ("dense_0/attn/wq", "layers/attn/wk", "layers/moe/we_down"),
 }
 _CACHE = {}
+
+
+def variant(get, arch, **overrides):
+    """``get(arch)`` of either package's registry; ``+gqa`` swaps MLA for GQA."""
+    base = arch.removesuffix("+gqa")
+    cfg = get(base, **overrides)
+    return dataclasses.replace(cfg, attention_kind="gqa") if base != arch else cfg
+
+
+def dtype_cases(archs):
+    """(dtype, tol, arch) for float32 everywhere and bf16 except for MoE
+    models: bf16 noise before the router can flip a near-tied top-k, and a
+    flipped expert is not a question of tolerance."""
+    return [(dt, tol, a) for dt, tol in DTYPE_TOLS for a in archs
+            if dt == "float32" or a not in MOE_ARCHS]
 
 
 def bridged(dtype, arch=ARCH):
     """(jax model, jax params, port model, port params) on one set of weights."""
     if (arch, dtype) not in _CACHE:
-        jcfg = jax_smoke(arch, dtype=dtype)
+        jcfg = variant(jax_smoke, arch, dtype=dtype)
         jm = JaxModel(jcfg, remat=False)
         jp, _ = jm.init(jax.random.PRNGKey(0))
-        cfg = get_smoke_config(arch, dtype=dtype)
+        cfg = variant(get_smoke_config, arch, dtype=dtype)
         tp = params_from_jax(_flatten(jp), cfg, device="cpu")
         _CACHE[(arch, dtype)] = (jm, jp, Model(cfg), tp)
     return _CACHE[(arch, dtype)]
@@ -82,9 +107,10 @@ def f32(x):
 @pytest.mark.parametrize("getter", ["full", "smoke"])
 def test_config_copy_equals_reference_field_by_field(getter, arch):
     if getter == "full":
-        mine, theirs = get_config(arch), jax_config(arch)
+        mine, theirs = variant(get_config, arch), variant(jax_config, arch)
     else:
-        mine, theirs = get_smoke_config(arch, dtype="float32"), jax_smoke(arch, dtype="float32")
+        mine = variant(get_smoke_config, arch, dtype="float32")
+        theirs = variant(jax_smoke, arch, dtype="float32")
     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     assert mine.padded_vocab == theirs.padded_vocab
     assert mine.param_count() == theirs.param_count()
@@ -112,7 +138,7 @@ def test_bridge_refuses_missing_extra_and_misshapen_keys(arch):
     with pytest.raises(ValueError, match="missing"):
         params_from_jax({k: v for k, v in flat.items() if k != "head"}, cfg, device="cpu")
     with pytest.raises(ValueError, match="unexpected"):
-        params_from_jax({**flat, "mtp/proj": flat["head"]}, cfg, device="cpu")
+        params_from_jax({**flat, "extra/proj": flat["head"]}, cfg, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         params_from_jax({**flat, "head": flat["head"][:, :8]}, cfg, device="cpu")
 
@@ -155,8 +181,7 @@ def _prefill_inputs(cfg):
     return toks, lengths
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
+@pytest.mark.parametrize("dtype,tol,arch", dtype_cases(ARCHS))
 def test_prefill_logits_and_cache_match_jax(dtype, tol, arch):
     jm, jp, m, tp = bridged(dtype, arch)
     toks, lengths = _prefill_inputs(m.cfg)
@@ -164,7 +189,7 @@ def test_prefill_logits_and_cache_match_jax(dtype, tol, arch):
     tl, tc = m.prefill(tp, torch.from_numpy(toks).long(), torch.from_numpy(lengths))
     assert tl.shape == jl.shape
     np.testing.assert_allclose(f32(tl), f32(jl), atol=tol, rtol=tol)
-    # every cache leaf: attention k/v, SSM conv tails and states
+    # every cache leaf: attention k/v or MLA latents, SSM conv tails and states
     assert_trees_close(tc, jc, tol)
     # the padded vocab tail is masked
     assert np.all(f32(tl)[..., m.cfg.vocab_size:] <= -1e29)
@@ -194,14 +219,15 @@ def test_prefill_from_frontend_embeddings_matches_jax(dtype, tol, arch):
     torch.testing.assert_close(by_embeds, by_tokens, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("arch,paged", [(a, False) for a in ARCHS]
-                         + [(a, True) for a in PAGED_ARCHS])
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.15)])
+@pytest.mark.parametrize("dtype,tol,arch,paged",
+                         [c + (False,) for c in dtype_cases(ARCHS)]
+                         + [c + (True,) for c in dtype_cases(PAGED_ARCHS)])
 def test_decode_logits_match_jax(dtype, tol, arch, paged):
     """Four ragged decode steps from per-slot positions, slot 2 idle, on the
     flat or the paged cache; live rows' logits match (idle rows' are
     discarded by the engine, and the two packages fill them differently),
-    and so does every cache leaf (idle slots' SSM states stay as they were)."""
+    and so does every cache leaf (idle slots' SSM states stay as they were).
+    MoE models only in float32 (see :func:`dtype_cases`)."""
     jm, jp, m, tp = bridged(dtype, arch)
     B, ps, max_pages = 3, 4, 4
     rng = np.random.default_rng(2)

@@ -135,14 +135,17 @@ def test_mig_chip_whole_card_and_memory_slices():
 def test_h100_profile_sizes_and_the_instances_each_arch_needs():
     """Over the paper's instance sizes: a model fits from the smallest
     instance whose memory slices hold its bf16 weights and one request's
-    4,096-token cache within 90%; llama3-405b (812 GB) fits none."""
+    4,096-token cache within 90%; llama3-405b (812 GB), deepseek-v2-236b
+    (472 GB) and deepseek-v3-671b fit none."""
+    too_big = ("llama3-405b", "deepseek-v2-236b", "deepseek-v3-671b")
     p = h100_arch_profiles()
     assert tuple(p.sizes()) == (1, 2, 3, 4, 7)
-    assert {a: p.min_size(a) for a in ARCH_IDS if a != "llama3-405b"} == {
+    assert {a: p.min_size(a) for a in ARCH_IDS if a not in too_big} == {
         "qwen3-8b": 2, "mamba2-370m": 1, "zamba2-1.2b": 1, "granite-20b": 7,
         "phi4-mini-3.8b": 2, "internvl2-1b": 1, "musicgen-large": 1}
-    with pytest.raises(ValueError, match="fits on no instance"):
-        p.min_size("llama3-405b")
+    for a in too_big:
+        with pytest.raises(ValueError, match="fits on no instance"):
+            p.min_size(a)
     # more of the card is never slower
     for a in ARCH_IDS:
         lat = [p.latency_ms(a, s, 8) for s in p.sizes()]
@@ -155,11 +158,12 @@ def _serve_correction(printed, arch, size):
 
 
 @pytest.mark.parametrize("arch,size", [("qwen3-8b", 3), ("internvl2-1b", 1),
-                                       ("llama3-405b", 7)])
+                                       ("llama3-405b", 7), ("deepseek-v2-236b", 7)])
 def test_serve_cli_prints_the_measured_correction(tmp_path, capsys, arch, size):
     """The §8.3 line is the correction a MeasuredProfile round the H100 MIG
     profile gives for the run's measured throughput at ``--size``;
-    llama3-405b fits no instance, so it stays at 1."""
+    llama3-405b and deepseek-v2-236b (the full configs the profile prices)
+    fit no instance, so theirs stays at 1."""
     out = tmp_path / "stats.json"
     serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--batch", "2",
                 "--new-tokens", "3", "--size", str(size), "--stats-json", str(out)])
@@ -168,7 +172,7 @@ def test_serve_cli_prints_the_measured_correction(tmp_path, capsys, arch, size):
     want.observe(arch, size, 2, tput)
     assert _serve_correction(capsys.readouterr().out, arch, size) == [
         f"{want.correction(arch, size):.4f}"]
-    if arch == "llama3-405b":
+    if arch in ("llama3-405b", "deepseek-v2-236b"):
         assert want.correction(arch, size) == 1.0
 
 

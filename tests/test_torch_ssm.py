@@ -395,14 +395,29 @@ def test_attention_layers_and_page_bytes_match_reference(arch):
                                                   "zamba2-1.2b": 19}[arch]
 
 
-@pytest.mark.parametrize("field,value", [
-    ("arch_type", "moe"), ("attention_kind", "mla"),
+@pytest.mark.parametrize("field,value,block_key", [
+    ("arch_type", "moe", "layers/moe/we_gate"),
+    ("attention_kind", "mla", "shared_attn/w_dkv"),
 ])
-def test_model_refuses_what_the_port_does_not_serve(field, value):
-    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), kv_lora_rank=8,
-                              **{field: value})
-    with pytest.raises(NotImplementedError):
-        Model(cfg)
+def test_model_serves_moe_and_mla_as_the_reference_does(field, value, block_key):
+    """The MoE family (on the zamba2 smoke widths, with four experts and
+    one unrolled dense block) and MLA in the hybrid's shared block: the
+    port builds them with the reference's key tree and prefills them to
+    its logits on bridged float32 weights."""
+    extra = dict(num_experts=4, experts_per_token=2, moe_d_ff=64,
+                 first_dense_layers=1) if value == "moe" else {}
+    over = dict(kv_lora_rank=8, dtype="float32", **extra, **{field: value})
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), **over)
+    jm = JaxModel(dataclasses.replace(jax_smoke("zamba2-1.2b"), **over), remat=False)
+    jp, _ = jm.init(jax.random.PRNGKey(0))
+    m = Model(cfg)
+    assert block_key in m.param_specs()
+    assert sorted(m.param_specs()) == sorted(_flatten(jp))
+    tp = params_from_jax(_flatten(jp), cfg, device="cpu")
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, size=(1, 16))
+    want, _ = jm.prefill(jp, tokens=jnp.asarray(toks, jnp.int32))
+    got, _ = m.prefill(tp, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("field,value,block_key", [
