@@ -22,7 +22,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the bound (the scan's both on the tensor cores, which it is held
    to, and on the float32 CUDA cores); for the paged decode and the scan,
    each launch's device time (torch.profiler), and for the paged decode its
-   time with one wave of splits;
+   time with one wave of splits; then, under grad, flash's dq/dk/dv and
+   the scan's five input gradients through the wrappers' autograd Function
+   (kernel forward, the plain version's gradient backward) against the
+   plain version's own autograd, at the training cell's shapes (flash
+   q (4,1024,32,128) over 8 KV heads in bf16, a float32 smoke shape and a
+   windowed one; the scan at mamba2-370m's (4,1024,32,64,128)), forward +
+   backward timed beside the plain version's and, for flash, SDPA's;
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
    qwen3-8b, zamba2-1.2b, granite-20b, phi4-mini-3.8b and llama3-405b
@@ -32,7 +38,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    deepseek-v2 smoke config with GQA in place of MLA (paged and flat, the
    MoE family through flash and the decode kernels); and the ring caches
    (window 8) of qwen3-8b and of deepseek-v2 (MLA) driven through
-   Model.prefill and Model.decode_step past the wrap;
+   Model.prefill and Model.decode_step past the wrap; then training: three
+   train steps on the card against the same on the CPU from one init
+   (qwen3-8b, granite-20b, mamba2-370m, zamba2-1.2b, deepseek-v3-671b,
+   internvl2-1b through embeddings, qwen3-8b under a window of 8 over 32
+   tokens; some with remat), per-step loss, ce, aux, mtp and grad_norm,
+   the launches each step implies and a grad_fn on every kernel output;
 5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers), zamba2-1.2b
    (38 Mamba2 layers, 19 shared-attention calls), granite-20b (52 layers,
    on the paged and on the flat backend), phi4-mini-3.8b (32 layers),
@@ -48,13 +59,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    7-slice (whole-card) instance, the measured one and the correction of
    a MeasuredProfile fed the run; then granite-20b's
    weights under a 512-token window: a batch-8 prefill of 1,024 tokens and
-   16 decode steps past the wrap on ring caches;
+   16 decode steps past the wrap on ring caches; then, the serving models
+   freed, training: qwen3-8b at full width with its depth cut to 8 of 36
+   layers (2.79 B parameters; bf16 weights and gradients and float32 AdamW
+   moments, 33.5 GB) and mamba2-370m whole, 10 steps each of 4 x 1,024
+   tokens of the synthetic stream, no remat: step time, tokens/s, peak
+   memory, the loss (it must fall) and the model-FLOPs share;
 6. profiles: for qwen3-8b, granite-20b (flat) and deepseek-v2-236b,
    eight full decode steps timed on the host clock and eight more traced
    with torch.profiler (device-busy time by kernel family, idle share,
    launches per step); for
    qwen3-8b and mamba2-370m, one admission of a 1024-token prompt, timed
-   and then traced the same way.
+   and then traced the same way; one qwen3-8b training step split into
+   forward, backward and optimizer, then traced.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -100,6 +117,16 @@ WHOLE_CARD = 7
 # deepseek-v2-236b's depth on one card: its one dense layer and 5 MoE layers
 # (21.25 B parameters, 42.49 GB in bf16; all 60 layers are 472 GB)
 DSV2_LAYERS = 6
+
+# qwen3-8b's depth when it trains on one card: 8 of its 36 layers, 2.79 B
+# parameters, whose bf16 weights and gradients and float32 AdamW moments
+# take 33.5 GB (all 36 layers: about 98 GB)
+TRAIN_LAYERS = 8
+
+# phase 5's training traffic: steps of batch x seq tokens of the synthetic
+# stream at AdamW's default rate (the train CLI's 1e-3 makes the 8-layer
+# model's loss rise over these 10 steps), one warmup step as the CLI sets
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 4, 1024, 3e-4
 
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -423,6 +450,147 @@ def check_ssm(torch, ops, ssm_mod, rng, cfg, S):
                 library_ms=None)
 
 
+# -- phase 3 (training): the gradients through the kernels ---------------------------
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in float32."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
+
+
+def fwd_bwd(torch, fn, nx):
+    """A call of ``fn``'s forward and backward on the next input set
+    (inputs..., upstream gradient), as a train step runs them."""
+    def run():
+        *args, w = nx()
+        out = fn(*args)
+        torch.autograd.grad(out[0] if isinstance(out, tuple) else out, args, w)
+    return run
+
+
+def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window):
+    """dq, dk, dv through the wrapper's autograd Function (the kernel
+    forward, the plain version's gradient backward) against the plain
+    version's own autograd, on the same inputs; forward + backward timed
+    beside the plain version's and SDPA's."""
+    import torch.nn.functional as F
+
+    name = str(dtype).replace("torch.", "")
+    dbytes = torch.tensor([], dtype=dtype).element_size()
+    gen = card_generator(torch, rng)
+    set_bytes = B * S * (2 * H + 2 * KV) * D * dbytes
+    sets = [tuple(randn(torch, (B, S, n, D), dtype, gen).requires_grad_() for n in (H, KV, KV))
+            + (randn(torch, (B, S, H, D), dtype, gen),)
+            for _ in range(min(4, max(1, math.ceil(150e6 / set_bytes))))]
+    scale = 1.0 / math.sqrt(D)
+
+    def plain(q, k, v):
+        return fa_mod.flash_attention_plain(
+            *(x.transpose(1, 2) for x in (q, k, v)), scale, window).transpose(1, 2)
+
+    def kernel(q, k, v):
+        return ops.flash_attention(q, k, v, window=window)
+
+    q, k, v, w = sets[0]
+    out = kernel(q, k, v)
+    has_grad_fn = out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), w)
+    want_out = plain(q, k, v)
+    want = torch.autograd.grad(want_out, (q, k, v), w)
+    torch.cuda.synchronize()
+    errs = {"out": rel_err(out, want_out)}
+    errs.update({f"d{n}": rel_err(g, r) for n, g, r in zip("qkv", got, want)})
+    ok = has_grad_fn and max(errs.values()) <= TOL[name]
+    del out, got, want_out, want
+    nx = rotating(sets)
+    qi = torch.arange(S, device="cuda")[:, None]
+    kj = torch.arange(S, device="cuda")[None, :]
+    mask = kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+
+    def sdpa(q, k, v):  # yardstick only, never called by the port
+        return F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q, k, v)), attn_mask=None if window is None else mask,
+            is_causal=window is None, scale=scale, enable_gqa=True).transpose(1, 2)
+
+    iters = 10 if S >= 512 else 50
+    ms = cuda_ms(torch, fwd_bwd(torch, kernel, nx), iters)
+    plain_ms = cuda_ms(torch, fwd_bwd(torch, plain, nx), 3)
+    library_ms = cuda_ms(torch, fwd_bwd(torch, sdpa, nx), iters)
+    # forward 4 and backward 8 multiply-add flops per (query, key) pair and
+    # head dim (Q·Kᵀ, P·V; dV, dP, dQ, dK); q, k, v and dO read, O, dQ, dK, dV written
+    pairs = int(mask.sum().item())
+    flops = 12.0 * B * H * D * pairs
+    nbytes = B * S * (4 * H + 4 * KV) * D * dbytes
+    b_ms, b_by = bound(nbytes, flops, name)
+    phase("grad", kernel="flash_attention", dtype=name, B=B, S=S, H=H, KV=KV, D=D,
+          window=window, grad_fn=has_grad_fn,
+          **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()}, tol=TOL[name], ok=ok,
+          fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+          sdpa_fwd_bwd_ms=f"{library_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    if not ok:
+        fail(f"flash_attention gradient {name} S={S} window={window}: errors {errs}, "
+             f"grad_fn={has_grad_fn}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms)
+
+
+def check_scan_grad(torch, ops, ssm_mod, rng, B, S, H, P, N, L):
+    """dx, ddt, dA, dB, dC through the wrapper's autograd Function against
+    the plain version's own autograd (the final state unused, as in
+    training); forward + backward timed beside the plain version's."""
+    import torch.nn.functional as F
+
+    gen = card_generator(torch, rng)
+    nbytes, flops = scan_work(B, S, H, P, N, L)
+    sets = []
+    for _ in range(min(4, max(1, math.ceil(150e6 / nbytes)))):
+        leaves = (randn(torch, (B, S, H, P), torch.float32, gen),
+                  F.softplus(randn(torch, (B, S, H), torch.float32, gen)),
+                  -torch.exp(randn(torch, (H,), torch.float32, gen) * 0.5),
+                  randn(torch, (B, S, N), torch.float32, gen),
+                  randn(torch, (B, S, N), torch.float32, gen))
+        sets.append(tuple(t.requires_grad_() for t in leaves)
+                    + (randn(torch, (B, S, H, P), torch.float32, gen),))
+
+    def plain(*a):
+        return ssm_mod.ssm_scan_plain(*a, L)
+
+    def kernel(*a):
+        return ops.ssm_scan(*a, chunk=L)
+
+    *args, w = sets[0]
+    y, final = kernel(*args)
+    has_grad_fn = y.grad_fn is not None and final.grad_fn is not None
+    got = torch.autograd.grad(y, args, w)
+    want_y, _ = plain(*args)
+    want = torch.autograd.grad(want_y, args, w)
+    torch.cuda.synchronize()
+    errs = {"y": rel_err(y, want_y)}
+    errs.update({f"d{n}": rel_err(g, r)
+                 for n, g, r in zip(("x", "dt", "A", "B", "C"), got, want)})
+    ok = has_grad_fn and max(errs.values()) <= SCAN_TOL
+    del y, final, got, want_y, want
+    nx = rotating(sets)
+    ms = cuda_ms(torch, fwd_bwd(torch, kernel, nx), 10)
+    plain_ms = cuda_ms(torch, fwd_bwd(torch, plain, nx), 3)
+    # the backward's products are twice the forward's; dy read, and y, the
+    # final state and the five input gradients written, beside the inputs
+    grad_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
+    io_bytes = nbytes + 4 * B * S * H * P + grad_bytes
+    b_ms, b_by = bound(io_bytes, 3 * flops, "tf32")
+    cc_ms, cc_by = bound(io_bytes, 3 * flops, "float32")
+    phase("grad", kernel="ssm_scan", dtype="float32", B=B, S=S, H=H, P=P, N=N, chunk=L,
+          grad_fn=has_grad_fn, **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()},
+          tol=SCAN_TOL, ok=ok, fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+          library_ms=None, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          cuda_core_bound_ms=f"{cc_ms:.4f}", cuda_core_bound_by=cc_by)
+    if not ok:
+        fail(f"ssm_scan gradient S={S}: errors {errs}, grad_fn={has_grad_fn}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms)
+
+
 # -- phase 4: the whole path on the card against the CPU --------------------------
 
 
@@ -485,6 +653,112 @@ def ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_varia
         fail(f"{cfg.name} ring: launch counts {counts} != expected {expect}")
 
 
+def attn_layers(cfg, remat: bool) -> int:
+    """Flash launches of one training step: each GQA attention layer's
+    forward, run twice when ``remat`` recomputes its stacked block (the
+    MoE family's unrolled dense blocks are not recomputed); MLA none."""
+    if cfg.arch_type == "ssm" or cfg.attention_kind != "gqa":
+        return 0
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every * (2 if remat else 1)
+    n_dense = cfg.first_dense_layers if cfg.arch_type == "moe" else 0
+    return n_dense + (cfg.num_layers - n_dense) * (2 if remat else 1)
+
+
+def mamba_layers(cfg, remat: bool) -> int:
+    """Scan launches of one training step: each Mamba2 layer's forward."""
+    return cfg.num_layers * (2 if remat else 1) if cfg.arch_type in ("ssm", "hybrid") else 0
+
+
+def grad_spy(torch, ops, kernels_bridge):
+    """Route the model's calls of the two wrappers that training reaches
+    through spies: every call under grad with an input that requires grad
+    records whether its output has a grad_fn.  (The spies stand in the
+    bridge's view of ``ops``, not in ``ops`` itself, whose wrappers count
+    their launches on their own names.)  Returns (record, undo)."""
+    record = {"checked": 0, "missing": []}
+
+    def make(name):
+        real = getattr(ops, name)
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            if torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad
+                                               for a in args):
+                record["checked"] += 1
+                if (out[0] if isinstance(out, tuple) else out).grad_fn is None:
+                    record["missing"].append(name)
+            return out
+        return spy
+
+    spies = {name: make(name) for name in ("flash_attention", "ssm_scan")}
+
+    class Spied:
+        def __getattr__(self, name):
+            return spies[name] if name in spies else getattr(ops, name)
+
+    kernels_bridge.ops = Spied()
+    return record, lambda: setattr(kernels_bridge, "ops", ops)
+
+
+def train_metrics(training, model, params, seed, steps, device):
+    """``steps`` train steps of batch 2 x 32 tokens on the synthetic
+    stream; each step's metrics as floats."""
+    adamw, data = training.adamw, training.data
+    step_fn = training.make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=2))
+    state = adamw.init(params)
+    out = []
+    for b in data.batches(model.cfg, data.DataConfig(batch=2, seq_len=32, seed=seed), steps,
+                          device):
+        params, state, m = step_fn(params, state, b)
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+# card against CPU, per train step: the kernels' float32 forward differs
+# from the plain version within its tolerance, and the embed gradient
+# accumulates through the card's atomics, so no step is bit-equal; after
+# the first update Adam's m̂/√v̂ ≈ sign(g) can move a parameter whose
+# gradient is near 0 by 2·lr, so later steps get ten times the room
+TRAIN_RTOL = (1e-4, 1e-3, 1e-3)
+
+
+def train_parity(torch, ops, kernels_bridge, Model, tree_to, training, cfg, remat, seed,
+                 steps=3):
+    """Three train steps of a float32 smoke config on the card against the
+    same on the CPU, from one init: per-step metrics within TRAIN_RTOL, the
+    launches a step implies, and a grad_fn on every kernel output."""
+    model = Model(cfg, remat=remat)
+    params_cpu = model.init(seed, device="cpu")
+    params_gpu = tree_to(params_cpu, "cuda")  # before the CPU steps update in place
+    want = train_metrics(training, model, params_cpu, seed, steps, "cpu")
+    record, undo = grad_spy(torch, ops, kernels_bridge)
+    ops.reset_launches()
+    try:
+        got = train_metrics(training, model, params_gpu, seed, steps, "cuda")
+    finally:
+        undo()
+    counts = ops.launches()
+    expect = {"decode_attention": 0, "flash_attention": steps * attn_layers(cfg, remat),
+              "paged_decode_attention": 0, "ssm_scan": steps * mamba_layers(cfg, remat)}
+    rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-6) for k in w} for g, w in zip(got, want)]
+    ok = all(sorted(g) == sorted(w) for g, w in zip(got, want)) and all(
+        max(r.values()) <= tol for r, tol in zip(rel, TRAIN_RTOL))
+    phase("train_parity", config=cfg.name, window=cfg.sliding_window, remat=remat,
+          steps=steps, cpu_loss=[round(w["loss"], 6) for w in want],
+          cuda_loss=[round(g["loss"], 6) for g in got],
+          max_rel_diff=[f"{max(r.values()):.2e}" for r in rel],
+          worst=[max(r, key=r.get) for r in rel], keys=",".join(sorted(want[0])),
+          launches=json.dumps(counts), grad_fn_checked=record["checked"],
+          grad_fn_missing=len(record["missing"]))
+    if not ok:
+        fail(f"{cfg.name} training: the card's metrics differ from the CPU's: {got} vs {want}")
+    if counts != expect:
+        fail(f"{cfg.name} training: launch counts {counts} != expected {expect}")
+    if record["missing"] or record["checked"] != sum(counts.values()):
+        fail(f"{cfg.name} training: kernel outputs under grad without a grad_fn: {record}")
+
+
 # -- phase 5: a main path at full width ---------------------------------------------
 
 
@@ -538,6 +812,70 @@ def ring_main(torch, ops, Model, long_context_variant, cfg, params, rng, window=
     return counts
 
 
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6·N·T for the parameters' products
+    (N counts every parameter), and 6·L·H·D·S·T for causal attention over
+    L attention layers (forward and backward of Q·Kᵀ and P·V)."""
+    T = batch * seq
+    return 6.0 * n_params * T + 6.0 * attn_layers(cfg, False) * cfg.num_heads * \
+        cfg.head_dim * seq * T
+
+
+def train_main(torch, ops, Model, flatten, training, cfg, seed, full=None):
+    """TRAIN_STEPS train steps of TRAIN_BATCH x TRAIN_SEQ tokens of the
+    synthetic stream at full width, bf16, without remat (as the train CLI
+    runs):
+    step time from CUDA events, tokens/s, peak memory, the loss (it must
+    fall) and the model-FLOPs share of the card's bf16 peak.  Returns
+    (model, params, state, counts)."""
+    adamw, data = training.adamw, training.data
+    steps, batch, seq = TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ
+    _, params = init_main(torch, Model, flatten, cfg, seed, full=full)
+    model = Model(cfg, remat=False)
+    n_params = sum(p.numel() for p in flatten(params).values())
+    state = adamw.init(params)
+    step_fn = training.make_train_step(
+        model, adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=max(1, steps // 10)))
+    dcfg = data.DataConfig(batch=batch, seq_len=seq, seed=seed)
+    batches = [data.synthetic_batch(cfg, dcfg, i, "cuda") for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    times, losses = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = step_fn(params, state, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    counts = ops.launches()
+    expect = {"decode_attention": 0, "flash_attention": steps * attn_layers(cfg, False),
+              "paged_decode_attention": 0, "ssm_scan": steps * mamba_layers(cfg, False)}
+    step_ms = float(np.median(times))
+    share = train_flops(cfg, n_params, batch, seq) / (step_ms / 1e3 * PEAK_FLOPS["bfloat16"])
+    finite = all(math.isfinite(x) for x in losses)
+    phase("train", config=cfg.name, layers=cfg.num_layers, params=n_params, batch=batch,
+          seq=seq, steps=steps, lr=TRAIN_LR, remat=False, step_ms_p50=f"{step_ms:.2f}",
+          step_ms_first=f"{times[0]:.2f}", step_ms_max=f"{max(times):.2f}",
+          tokens_per_s=f"{batch * seq / step_ms * 1e3:.0f}",
+          peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          weights_grads_moments_gb=f"{n_params * (2 + 2 + 8) / 1e9:.2f}",
+          loss=f"{losses[0]:.4f}->{losses[-1]:.4f}",
+          losses=",".join(f"{x:.4f}" for x in losses),
+          model_flops_share=f"{share:.4f}", launches=json.dumps(counts),
+          expected=json.dumps(expect))
+    if not finite:
+        fail(f"{cfg.name} training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name} training: the loss did not fall: {losses}")
+    if counts != expect:
+        fail(f"{cfg.name} training: launch counts {counts} != expected {expect}")
+    return model, params, state, counts
 
 
 def init_main(torch, Model, flatten, cfg, seed, full=None):
@@ -662,8 +1000,9 @@ def main() -> None:
         from repro_torch.kernels import flash_attention as fa_mod
         from repro_torch.kernels import paged_attention as paged_mod
         from repro_torch.kernels import ssm_scan as ssm_mod
-        from repro_torch.models import Model
-        from repro_torch.models.common import flatten, tree_to
+        from repro_torch import training
+        from repro_torch.models import Model, kernels_bridge
+        from repro_torch.models.common import flatten, tree_to, unflatten
         from repro_torch.serving import Engine, Request, run_closed_loop
     except ImportError as e:
         fail(f"cannot import the port (run from the root of a checkout): {e}")
@@ -746,6 +1085,20 @@ def main() -> None:
     for cfg in (phi4, intern):
         check_flash(torch, ops, fa_mod, torch.bfloat16, rng, cfg, 1024, None)
         check_decode(torch, ops, dec_mod, torch.bfloat16, rng, cfg, 8, 2048)
+    # the gradients that training takes through flash and the scan, at the
+    # training cell's shapes (qwen3-8b's heads over 4 x 1,024 tokens in
+    # bf16, mamba2-370m's in float32), a float32 smoke shape and a window;
+    # from their own generator, so the draws above and below do not move
+    grad_rng = np.random.default_rng([args.seed, 3])
+    results["flash_grad"] = check_flash_grad(torch, ops, fa_mod, torch.bfloat16, grad_rng,
+                                             4, 1024, qwen.num_heads, qwen.num_kv_heads,
+                                             qwen.head_dim, None)
+    check_flash_grad(torch, ops, fa_mod, torch.float32, grad_rng, 2, 64, 4, 2, 32, None)
+    check_flash_grad(torch, ops, fa_mod, torch.bfloat16, grad_rng, 1, 1024, qwen.num_heads,
+                     qwen.num_kv_heads, qwen.head_dim, 256)
+    results["scan_grad"] = check_scan_grad(torch, ops, ssm_mod, grad_rng, 4, 1024,
+                                           mamba.ssm_heads, mamba.ssm_head_dim,
+                                           mamba.ssm_state, mamba.ssm_chunk)
 
     # 4. whole-path parity: the card's kernels against the CPU's plain path ----
     # the deepseek-v2 smoke config with GQA in place of MLA: MoE blocks
@@ -789,6 +1142,18 @@ def main() -> None:
     for arch in ("qwen3-8b", "deepseek-v2-236b"):
         ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_variant, rng,
                     args.seed, arch)
+    # training on the card against the CPU: every family, the stub frontend's
+    # embeddings, and GQA under a window shorter than the sequence
+    smoke = {a: get_smoke_config(a, dtype="float32") for a in (
+        "qwen3-8b", "granite-20b", "mamba2-370m", "zamba2-1.2b", "deepseek-v3-671b",
+        "internvl2-1b")}
+    for arch, remat in (("qwen3-8b", False), ("granite-20b", False), ("mamba2-370m", True),
+                        ("zamba2-1.2b", True), ("deepseek-v3-671b", True),
+                        ("internvl2-1b", False)):
+        train_parity(torch, ops, kernels_bridge, Model, tree_to, training, smoke[arch], remat,
+                     args.seed)
+    train_parity(torch, ops, kernels_bridge, Model, tree_to, training,
+                 long_context_variant(smoke["qwen3-8b"], window=8), True, args.seed)
 
     # 5. main paths at full width, each followed by its profile (6) -----------------
     serve = (torch, ops, Engine, Request, run_closed_loop,
@@ -886,6 +1251,23 @@ def main() -> None:
                    {"matmul": MATMUL_NAMES,
                     "moe_dispatch": ("index", "radix", "cub", "scatter", "gather")})
     del engine, model, params
+    torch.cuda.empty_cache()
+
+    # training at full width: qwen3-8b cut to TRAIN_LAYERS, then mamba2-370m whole
+    qwen_train = get_config("qwen3-8b", num_layers=TRAIN_LAYERS)
+    phase("memory", before=f"training {qwen_train.name}",
+          allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    model, params, state, c = train_main(torch, ops, Model, flatten, training, qwen_train,
+                                         args.seed, full=qwen)
+    counts.append(c)
+    profile_train(torch, training, flatten, unflatten, model, params, state, args.seed)
+    del model, params, state
+    torch.cuda.empty_cache()
+    phase("memory", before=f"training {mamba.name}",
+          allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    *_, c = train_main(torch, ops, Model, flatten, training, mamba, args.seed)
+    counts.append(c)
+    del _
     torch.cuda.empty_cache()
 
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
@@ -999,6 +1381,65 @@ def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -
           kernels_per_prefill=n_kernels)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
     engine.step()  # hand back the finished requests
+
+
+TRAIN_FAMILIES = {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
+                  "attn_softmax": ("softmax",), "matmul": MATMUL_NAMES}
+
+
+def profile_train(torch, training, flatten, unflatten, model, params, state, seed,
+                  families=TRAIN_FAMILIES) -> None:
+    """One train step split by CUDA events into its forward (the loss),
+    backward (autograd, the plain attention recompute included) and
+    optimizer (the AdamW leaf loop), then one more step timed on the host
+    clock and one traced with torch.profiler: device time by kernel family
+    (the softmax kernels are the plain attention recompute's, as nothing
+    else in a dense step takes a softmax), the idle share, kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data = training.data
+    opt_cfg = training.adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    batch = data.synthetic_batch(model.cfg, data.DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed),
+                                 TRAIN_STEPS, "cuda")
+    loss_fn = training.make_loss_fn(model)
+    flat = flatten(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    leaves = {k: p.detach().requires_grad_() for k, p in flat.items()}
+    with torch.enable_grad():
+        loss, _ = loss_fn(unflatten(leaves), batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    ev[2].record()
+    del leaves, loss
+    _, state, _ = training.adamw.update(opt_cfg, unflatten(dict(zip(flat, grads))), state,
+                                        params)
+    ev[3].record()
+    ev[3].synchronize()
+    del grads
+    parts = {n: ev[i].elapsed_time(ev[i + 1])
+             for i, n in enumerate(("forward", "backward", "optimizer"))}
+    step_fn = training.make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params, state, _ = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    fams, n_kernels = kernel_families(events, families)
+    busy_ms = sum(fams.values()) / 1e3
+    if not n_kernels:
+        fail(f"{model.cfg.name}: the traced train step ran no kernel on the device")
+    phase("profile", config=model.cfg.name, train_step_tokens=int(batch["labels"].numel()),
+          **{f"{k}_ms": f"{v:.2f}" for k, v in parts.items()}, step_ms=f"{step_ms:.2f}",
+          device_busy_ms=f"{busy_ms:.2f}",
+          device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.3f}",
+          **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fams.items()},
+          kernels_per_step=n_kernels)
+    print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,12 +8,24 @@ the plain version on a card.  Any other device raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (CPU
 calls are not counted), so a run can show that its main path went through
 the kernels: set the counts to 0 with :func:`reset_launches`, run, read.
+
+Training reaches two of the kernels, flash attention and the SSD scan.
+When grad mode is on and an input requires grad, their wrappers on a card
+go through :class:`PlainGradient`: the forward is the kernel, exactly as
+without grad, and the backward is the gradient of the kernel's plain
+version, recomputed from the saved inputs (the reference has no backward
+kernel either: its training differentiates its jnp path).  Without grad
+they launch the kernel directly.  On the CPU the plain versions are
+differentiable as they stand.  The two decode kernels have no gradient,
+and their wrappers raise under grad rather than return an output that
+autograd cannot differentiate.  Under activation checkpointing the
+forward runs twice, and so counts two launches.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +44,46 @@ def _route(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
 
 
+def _wants_grad(*inputs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+def _refuse_grad(what: str, *inputs: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient that the kernel lacks."""
+    if _wants_grad(*inputs):
+        raise RuntimeError(f"{what} has no gradient: call it under torch.no_grad()")
+
+
+class PlainGradient(torch.autograd.Function):
+    """``kernel(*inputs)`` forward, the gradient of ``plain(*inputs)``
+    backward.  ``kernel`` and ``plain`` compute one function of the tensor
+    ``inputs`` (one output or a tuple); only the inputs are saved, and the
+    backward recomputes ``plain`` on them under grad, one call at a time.
+    Outputs that the loss does not reach (the scan's final state in
+    training) get no gradient and cost nothing."""
+
+    @staticmethod
+    def forward(ctx, kernel: Callable, plain: Callable, *inputs: torch.Tensor):
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            outs = ctx.plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wanted = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                       allow_unused=True) if pairs and wanted else ())
+        return (None, None) + tuple(next(got, None) if x.requires_grad else None
+                                    for x in inputs)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D) — model layout
     k: torch.Tensor,  # (B, S, KV, D)
@@ -41,13 +93,22 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention; (B, S, H, D) out."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # views, no copy
-    if not _route(q, "flash_attention"):
+
+    def plain(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # views, no copy
         return _fa.flash_attention_plain(qt, kt, vt, scale, window).transpose(1, 2)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _fa.launch(qt, kt, vt, out.transpose(1, 2), scale, window)
-    flash_attention.launches += 1
-    return out
+
+    def kernel(q, k, v):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _fa.launch(*(x.transpose(1, 2) for x in (q, k, v, out)), scale, window)
+        flash_attention.launches += 1
+        return out
+
+    if not _route(q, "flash_attention"):
+        return plain(q, k, v)
+    if _wants_grad(q, k, v):
+        return PlainGradient.apply(kernel, plain, q, k, v)
+    return kernel(q, k, v)
 
 
 def decode_attention(
@@ -60,6 +121,7 @@ def decode_attention(
     """One-token decode over the flat cache; (B, 1, H, D) out.  A row with
     no valid entry gives zeros."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _refuse_grad("decode_attention", q, k, v)
     q3 = q[:, 0]
     if not _route(q, "decode_attention"):
         return _dec.decode_attention_plain(q3, k, v, valid, scale)[:, None]
@@ -79,6 +141,7 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """One-token decode over the paged pool; (B, 1, H, D) out."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _refuse_grad("paged_decode_attention", q, pool_k, pool_v)
     q3 = q[:, 0]
     if not _route(q, "paged_decode_attention"):
         return _paged.paged_decode_attention_plain(
@@ -102,14 +165,23 @@ def ssm_scan(
     (B, H, P, N), both float32.  A sequence shorter than ``chunk`` is one
     chunk, as in the Pallas wrapper; otherwise ``S % chunk`` must be 0."""
     chunk = min(chunk, x.shape[1])
-    if not _route(x, "ssm_scan"):
+
+    def plain(x, dt, A, B_, C_):
         return _ssm.ssm_scan_plain(x, dt, A, B_, C_, chunk)
-    Bb, S, H, P = x.shape
-    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
-    final = torch.empty((Bb, H, P, B_.shape[-1]), dtype=torch.float32, device=x.device)
-    _ssm.launch(x, dt, A, B_, C_, chunk, y, final)
-    ssm_scan.launches += 1
-    return y, final
+
+    def kernel(x, dt, A, B_, C_):
+        Bb, S, H, P = x.shape
+        y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+        final = torch.empty((Bb, H, P, B_.shape[-1]), dtype=torch.float32, device=x.device)
+        _ssm.launch(x, dt, A, B_, C_, chunk, y, final)
+        ssm_scan.launches += 1
+        return y, final
+
+    if not _route(x, "ssm_scan"):
+        return plain(x, dt, A, B_, C_)
+    if _wants_grad(x, dt, A, B_, C_):
+        return PlainGradient.apply(kernel, plain, x, dt, A, B_, C_)
+    return kernel(x, dt, A, B_, C_)
 
 
 decode_attention.launches = 0

@@ -4,6 +4,7 @@ multi-head latent attention) with prefill and a weight-absorbed decode
 over the flat or ring latent cache.
 
 The port of the JAX package's ``models/attention.py``.
+``gqa_forward`` and ``mla_forward`` are the cacheless training forwards.
 Decode is *ragged*: ``pos`` is a per-request ``(B,)`` vector of positions,
 and negative positions mark idle slots whose cache writes are skipped.
 
@@ -60,6 +61,24 @@ def _gqa_qkv(
     return q, k, v
 
 
+def _gqa_attend(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence causal (optionally sliding-window) attention over any
+    ``S``, the window a mask over the whole sequence; returns (out, k, v)."""
+    B, S, _ = x.shape
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    o = kernels_bridge.causal_attention(q, k, v, window=cfg.sliding_window)
+    return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
+
+
+def gqa_forward(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """Full-sequence causal attention without a cache (the training path)."""
+    return _gqa_attend(p, cfg, x, positions)[0]
+
+
 def gqa_prefill(
     p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -69,13 +88,10 @@ def gqa_prefill(
     positions in ``slot_pos`` (``S`` must then be a multiple of ``W``, so
     position ``t`` lands in slot ``t % W``)."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
     W = cfg.sliding_window
     if W and W < S and S % W:
         raise ValueError(f"prefill length {S} must be a multiple of the ring window {W}")
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
-    o = kernels_bridge.causal_attention(q, k, v, window=W)
-    out = o.reshape(B, S, H * hd) @ p["wo"]
+    out, k, v = _gqa_attend(p, cfg, x, positions)
     if W and W < S:
         slot_pos = torch.arange(S - W, S, dtype=torch.int32, device=x.device)
         return out, {"k": k[:, S - W:], "v": v[:, S - W:], "slot_pos": slot_pos.expand(B, W)}

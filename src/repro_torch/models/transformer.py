@@ -19,7 +19,10 @@ architecture family:
 Attention is GQA or MLA, by ``attention_kind``, in every family, as in the
 reference; MLA keeps the flat (or ring) latent cache and has no paged one.
 
-Methods: ``init``, ``embed``, ``logits``, ``prefill``, ``init_cache`` /
+Methods: ``init``, ``embed``, ``logits``, ``hidden`` / ``forward`` (the
+full-sequence training forward, no cache; ``remat`` recomputes each
+stacked block in the backward, as the reference's ``jax.checkpoint`` over
+its scan body), ``prefill``, ``init_cache`` /
 ``decode_step`` (flat KV; a ring of ``sliding_window`` rows when the
 window is shorter than ``max_len``), ``init_paged_cache`` /
 ``decode_step_paged`` (paged KV; GQA without a window) and
@@ -39,6 +42,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -68,6 +72,12 @@ def _attn_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch
     return attn.gqa_prefill(p, cfg, h, positions)
 
 
+def _attn_forward(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor):
+    if cfg.attention_kind == "mla":
+        return attn.mla_forward(p, cfg, h, positions)
+    return attn.gqa_forward(p, cfg, h, positions)
+
+
 def _attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device):
     make = attn.mla_init_cache if cfg.attention_kind == "mla" else attn.gqa_init_cache
     return make(cfg, batch, max_len, DTYPES[cfg.dtype], device)
@@ -76,6 +86,14 @@ def _attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.d
 def _layer(tree: Params, i: int) -> Params:
     """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unbind(tree: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked parameter tree, as views from one
+    ``unbind`` a leaf, whose backward stacks the layers' gradients once
+    (indexing layer by layer would build a whole-stack gradient a layer)."""
+    parts = {k: _unbind(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -100,6 +118,9 @@ def _repeat_stacked(template: Params, n: int) -> Params:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    # recompute each stacked block in the backward of :meth:`hidden`
+    # (serving ignores it)
+    remat: bool = True
 
     def __post_init__(self):
         cfg = self.cfg
@@ -197,7 +218,9 @@ class Model:
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         out = h @ head
         if cfg.padded_vocab != cfg.vocab_size:
-            # mask the padding ids so sampling/softmax never sees them
+            # mask the padding ids so sampling/softmax never sees them; in
+            # place is safe under autograd, since the product saves its
+            # inputs and not its output, and the padded ids get gradient 0
             out[..., cfg.vocab_size:] = -1e30
         return out
 
@@ -208,6 +231,66 @@ class Model:
         if "moe" in lp:
             return x + moe_mod.moe_forward(lp["moe"], self.cfg, h)[0]
         return x + mlp_forward(lp["mlp"], h)
+
+    # --------------------------------------------------------------- training --
+    def _train_block(
+        self, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+        shared: Optional[Params] = None,
+    ):
+        """One block (or hybrid superblock) over the full sequence, without a
+        cache; returns (x, the block's MoE aux loss or 0.0)."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        if cfg.arch_type in BLOCK_TYPES:
+            x = x + _attn_forward(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
+            h = rmsnorm(x, lp["ln2"], eps)
+            if "moe" in lp:
+                out, aux = moe_mod.moe_forward(lp["moe"], cfg, h)
+                return x + out, aux
+            return x + mlp_forward(lp["mlp"], h), 0.0
+        if cfg.arch_type == "ssm":
+            return x + ssm_mod.ssm_forward(lp, cfg, rmsnorm(x, lp["ln"], eps)), 0.0
+        for j in range(cfg.shared_attn_every):  # hybrid superblock
+            mp = lp[f"mamba_{j}"]
+            x = x + ssm_mod.ssm_forward(mp, cfg, rmsnorm(x, mp["ln"], eps))
+        return x + _attn_forward(shared, cfg, rmsnorm(x, shared["ln"], eps), positions), 0.0
+
+    def hidden(
+        self,
+        params: Params,
+        tokens: Optional[torch.Tensor] = None,  # (B, S) int
+        embeds: Optional[torch.Tensor] = None,  # (B, S, d_model) frontend embeddings
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward up to the (pre-final-norm) hidden states;
+        returns (h, the MoE aux loss summed over the MoE layers, float32).
+        The MoE family's ``dense_{i}`` blocks are not recomputed, as in the
+        reference; with ``remat`` every stacked block is."""
+        cfg = self.cfg
+        x = self.embed(params, tokens) if embeds is None else embeds.to(DTYPES[cfg.dtype])
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(self.n_dense):
+            x, _ = self._train_block(params[f"dense_{i}"], x, positions)
+        shared = params.get("shared_attn")
+        for lp in _unbind(params["layers"], self.depth):
+            if self.remat:
+                x, a = checkpoint(self._train_block, lp, x, positions, shared,
+                                  use_reentrant=False)
+            else:
+                x, a = self._train_block(lp, x, positions, shared)
+            aux = aux + a
+        return x, aux
+
+    def forward(
+        self,
+        params: Params,
+        tokens: Optional[torch.Tensor] = None,
+        embeds: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward; returns (logits, aux loss)."""
+        h, aux = self.hidden(params, tokens=tokens, embeds=embeds)
+        return self.logits(params, h), aux
 
     # ---------------------------------------------------------------- prefill --
     def prefill(

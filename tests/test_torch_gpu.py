@@ -407,3 +407,130 @@ def test_mla_decode_on_the_card_matches_the_cpu(cuda, window):
         torch.testing.assert_close(b[:2], a[:2], atol=1e-4, rtol=1e-4)
     for k in caches["cpu"]:
         torch.testing.assert_close(caches[str(cuda)][k], caches["cpu"][k], atol=1e-4, rtol=1e-4)
+
+
+# -- training: the kernels' gradients, and a train step on the card --------------
+
+
+def _rel_err(got, want):
+    """max |got - want| over max(1, max |want|), in float32."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
+
+
+def _flash_plain(window, scale):
+    def plain(q, k, v):
+        out = fa_mod.flash_attention_plain(*(x.transpose(1, 2) for x in (q, k, v)), scale,
+                                           window)
+        return out.transpose(1, 2)
+    return plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D,window", [
+    (2, 4, 2, 48, 32, None),
+    (1, 8, 2, 100, 128, 33),
+    (2, 32, 8, 256, 128, None),   # qwen3-8b's heads
+    (1, 48, 1, 130, 128, None),   # granite-20b's MQA
+])
+def test_flash_gradient_through_the_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
+    """Under grad the wrapper launches the kernel once (the output has a
+    grad_fn), and dq, dk, dv are the plain version's gradients: the backward
+    recomputes the plain version, so they agree to float32 rounding (held
+    to the forward's tolerance, relative to the largest gradient)."""
+    rng = np.random.default_rng(S + D)
+    q, k, v = (_randn(rng, (B, S, n, D), dtype, cuda).requires_grad_() for n in (H, KV, KV))
+    w = _randn(rng, (B, S, H, D), dtype, cuda)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), w)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    plain_out = _flash_plain(window, 1 / math.sqrt(D))(q, k, v)
+    want = torch.autograd.grad(plain_out, (q, k, v), w)
+    assert _rel_err(out, plain_out) <= TOL[dtype]
+    for name, g, ref in zip("qkv", got, want):
+        assert g.dtype == dtype
+        assert _rel_err(g, ref) <= TOL[dtype], f"d{name}"
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 4, 32, 16, 16),
+    (1, 256, 32, 64, 128, 128),   # mamba2-370m's heads
+])
+def test_ssm_scan_gradient_through_the_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    rng = np.random.default_rng(S)
+    x = _randn(rng, (B, S, H, P), torch.float32, cuda).requires_grad_()
+    dt = torch.nn.functional.softplus(_randn(rng, (B, S, H), torch.float32, cuda)
+                                      ).requires_grad_()
+    A = (-torch.exp(_randn(rng, (H,), torch.float32, cuda) * 0.5)).requires_grad_()
+    Bm, Cm = (_randn(rng, (B, S, N), torch.float32, cuda).requires_grad_() for _ in range(2))
+    w = _randn(rng, (B, S, H, P), torch.float32, cuda)
+    args = (x, dt, A, Bm, Cm)
+    before = ops.ssm_scan.launches
+    y, final = ops.ssm_scan(*args, chunk=chunk)
+    assert y.grad_fn is not None and final.grad_fn is not None
+    got = torch.autograd.grad(y, args, w)  # the final state unused, as in training
+    torch.cuda.synchronize()
+    assert ops.ssm_scan.launches == before + 1
+    want_y, _ = ssm_scan_plain(*args, chunk)
+    want = torch.autograd.grad(want_y, args, w)
+    assert _rel_err(y, want_y) <= SCAN_TOL
+    for name, g, ref in zip(("x", "dt", "A", "B_", "C_"), got, want):
+        assert _rel_err(g, ref) <= SCAN_TOL, f"d{name}"
+
+
+def test_no_grad_calls_take_the_direct_path_and_count_one_launch(cuda):
+    rng = np.random.default_rng(9)
+    q, k, v = (_randn(rng, (1, 64, n, 64), torch.bfloat16, cuda).requires_grad_()
+               for n in (4, 2, 2))
+    ops.reset_launches()
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+        y, _ = ops.ssm_scan(*(_randn(rng, s, torch.float32, cuda) for s in
+                              ((1, 32, 2, 16), (1, 32, 2), (2,), (1, 32, 8), (1, 32, 8))),
+                            chunk=16)
+    assert out.grad_fn is None and y.grad_fn is None
+    assert ops.launches()["flash_attention"] == 1 and ops.launches()["ssm_scan"] == 1
+    out = ops.flash_attention(q, k, v)  # under grad: the Function, one launch
+    assert out.grad_fn is not None and ops.launches()["flash_attention"] == 2
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.decode_attention(q[:, :1], k, v, torch.ones((1, 64), dtype=torch.bool,
+                                                        device=cuda))
+
+
+@pytest.mark.parametrize("arch,remat", [("qwen3-8b", True), ("zamba2-1.2b", False)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
+    """Two steps of the float32 smoke config from one init and the same
+    batches: the metrics within 1e-4 relative of the CPU's (the kernels'
+    float32 forward differs from the plain version by up to their
+    tolerance; embed gradients accumulate through atomics), and every
+    attention and Mamba2 layer launched its kernel (twice under remat)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_to
+    from repro_torch.training import adamw, data, make_train_step
+
+    cfg = get_smoke_config(arch, dtype="float32")
+    model = Model(cfg, remat=remat)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = tree_to(p_cpu, cuda)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2)
+    dcfg = data.DataConfig(batch=2, seq_len=32)
+    runs = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        step, state = make_train_step(model, opt), adamw.init(params)
+        ops.reset_launches()
+        runs[dev] = []
+        for i in range(2):
+            params, state, m = step(params, state, data.synthetic_batch(cfg, dcfg, i, dev))
+            runs[dev].append({k: float(v) for k, v in m.items()})
+    for want, got in zip(runs["cpu"], runs["cuda"]):
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+    n_attn = cfg.num_layers // (cfg.shared_attn_every or 1)
+    n_ssm = cfg.num_layers if cfg.arch_type == "hybrid" else 0
+    per = 2 if remat else 1
+    assert ops.launches()["flash_attention"] == 2 * n_attn * per
+    assert ops.launches()["ssm_scan"] == 2 * n_ssm * per

@@ -52,6 +52,7 @@ def test_port_imports_in_a_process_without_jax():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.bridge, repro_torch.configs, repro_torch.models\n"
         "import repro_torch.serving, repro_torch.kernels.ops, repro_torch.launch.serve\n"
+        "import repro_torch.training, repro_torch.launch.train\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS, 'a kernel was built at import'\n"
         "print('ok')\n"
