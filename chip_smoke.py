@@ -71,7 +71,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    launches per step); for
    qwen3-8b and mamba2-370m, one admission of a 1024-token prompt, timed
    and then traced the same way; one qwen3-8b training step split into
-   forward, backward and optimizer, then traced.
+   forward, backward and optimizer, then traced;
+7. dry run: three of the steps phase 6 timed (granite-20b's flat decode
+   step of 8 slots, a qwen3-8b 1,024-token admission, the 8-layer qwen3-8b
+   train step) priced by ``python -m repro_torch.launch.dryrun`` on the
+   one-card mesh with the kernels booked, each run in a process of its own
+   (its fake process group must not meet the real one below): compute and
+   memory terms at the H100 data sheet's rates, their larger as the bound,
+   and the bound's share of the measured device-busy time, which fails
+   above 1.05; the train step's dry-run peak beside its measured one; then
+   one HGX H100 node (8 cards as (data, model) = (2, 4)) at full size:
+   qwen3-8b's four shapes, llama3-405b prefill_32k, deepseek-v3-671b
+   decode_32k with the expert-parallel MoE, mamba2-370m long_500k, each
+   step's three terms and its dominant one; then [ep]: deepseek-v2-236b's
+   MoE layer at full width through ``moe_forward_shard_map`` on a one-rank
+   NCCL group against ``moe_forward`` on the same inputs.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -84,6 +98,8 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -266,8 +282,7 @@ def check_paged(torch, ops, paged_mod, dtype, rng, cfg, batch, max_len, page_siz
     per_launch = launch_ms(torch, lambda: ops.paged_decode_attention(*nx()))
     plain_ms = cuda_ms(torch, lambda: paged_mod.paged_decode_attention_plain(
         *(lambda s: (s[0][:, 0],) + s[1:])(nx())), 5)
-    nbytes = (2 * n_tok * KV * D + 2 * batch * H * D) * dbytes + pt.numel() * 4 + batch * 4
-    flops = 4.0 * n_tok * H * D
+    flops, nbytes = paged_mod.work(batch, n_tok, H, KV, D, dbytes, pt.numel())
     b_ms, b_by = bound(nbytes, flops, name)
     phase("kernels", kernel="paged_decode_attention", config=cfg.name, dtype=name, B=batch,
           H=H, KV=KV,
@@ -332,8 +347,7 @@ def check_decode(torch, ops, dec_mod, dtype, rng, cfg, batch, S, window=None):
         attn_mask=s[3][:, None, None, :], scale=1.0 / math.sqrt(D), enable_gqa=True))(nx()),
         20)
     rows = int(valid.sum().item())  # the K/V rows the mask marks valid
-    nbytes = 2 * rows * KV * D * dbytes + batch * S + 2 * batch * H * D * dbytes
-    flops = 4.0 * rows * H * D
+    flops, nbytes = dec_mod.work(batch, S, H, KV, D, dbytes, rows)
     b_ms, b_by = bound(nbytes, flops, name)
     phase("kernels", kernel="decode_attention", config=cfg.name, dtype=name, B=batch, S=S,
           H=H, KV=KV, D=D, mask="prefix" if window is None else f"ring{window}",
@@ -381,9 +395,7 @@ def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window, B=1):
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         *(x.transpose(1, 2) for x in nx()), attn_mask=None if window is None else mask,
         is_causal=window is None, scale=scale, enable_gqa=True), iters)
-    pairs = int(mask.sum().item())
-    flops = 4.0 * B * H * D * pairs
-    nbytes = B * S * (2 * H + 2 * KV) * D * dbytes
+    flops, nbytes = fa_mod.work(B, S, H, KV, D, window, dbytes)
     b_ms, b_by = bound(nbytes, flops, name)
     phase("kernels", kernel="flash_attention", config=cfg.name, dtype=name, B=B, S=S, H=H,
           KV=KV, D=D,
@@ -396,18 +408,6 @@ def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window, B=1):
                 library_ms=library_ms)
 
 
-def scan_work(B, S, H, P, N, L):
-    """(bytes, flops) the SSD scan needs: each input read once and each
-    output written once, in float32; the multiply-adds of C·Bᵀ (lower
-    triangle, once per chunk), of the intra-chunk term, of the entering
-    state's term and of the state update (the exponentials not counted)."""
-    tri = L * (L + 1) // 2
-    nc = S // L
-    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N + B * H * P * N)
-    flops = 2.0 * B * nc * tri * (N + H * P) + 2 * (2.0 * B * S * H * P * N)
-    return nbytes, flops
-
-
 def check_ssm(torch, ops, ssm_mod, rng, cfg, S):
     """The SSD scan against its plain version at a model's shapes, batch 1,
     inputs drawn as tests/test_kernels.py draws them."""
@@ -415,7 +415,7 @@ def check_ssm(torch, ops, ssm_mod, rng, cfg, S):
 
     B, H, P, N, L = 1, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
     gen = card_generator(torch, rng)
-    nbytes, flops = scan_work(B, S, H, P, N, L)
+    flops, nbytes = ssm_mod.work(B, S, H, P, N, L)
     sets = []
     for _ in range(min(8, max(1, math.ceil(150e6 / nbytes)))):
         sets.append((
@@ -520,10 +520,10 @@ def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window):
     plain_ms = cuda_ms(torch, fwd_bwd(torch, plain, nx), 3)
     library_ms = cuda_ms(torch, fwd_bwd(torch, sdpa, nx), iters)
     # forward 4 and backward 8 multiply-add flops per (query, key) pair and
-    # head dim (Q·Kᵀ, P·V; dV, dP, dQ, dK); q, k, v and dO read, O, dQ, dK, dV written
-    pairs = int(mask.sum().item())
-    flops = 12.0 * B * H * D * pairs
-    nbytes = B * S * (4 * H + 4 * KV) * D * dbytes
+    # head dim (Q·Kᵀ, P·V; dV, dP, dQ, dK): three times the forward's; q, k,
+    # v and dO read, O, dQ, dK, dV written: twice the forward's bytes
+    fwd_flops, fwd_bytes = fa_mod.work(B, S, H, KV, D, window, dbytes)
+    flops, nbytes = 3 * fwd_flops, 2 * fwd_bytes
     b_ms, b_by = bound(nbytes, flops, name)
     phase("grad", kernel="flash_attention", dtype=name, B=B, S=S, H=H, KV=KV, D=D,
           window=window, grad_fn=has_grad_fn,
@@ -543,7 +543,7 @@ def check_scan_grad(torch, ops, ssm_mod, rng, B, S, H, P, N, L):
     import torch.nn.functional as F
 
     gen = card_generator(torch, rng)
-    nbytes, flops = scan_work(B, S, H, P, N, L)
+    flops, nbytes = ssm_mod.work(B, S, H, P, N, L)
     sets = []
     for _ in range(min(4, max(1, math.ceil(150e6 / nbytes)))):
         leaves = (randn(torch, (B, S, H, P), torch.float32, gen),
@@ -981,6 +981,157 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
     return engine, counts, rng
 
 
+# -- phase 7: the dry run against the card; expert parallelism ----------------------
+
+# the steps phase 6 measures, as the dry run prices them on one card: granite-20b's
+# flat decode step of 8 slots over 2,048 cache rows, a qwen3-8b admission of 1,024
+# tokens, and a qwen3-8b train step of TRAIN_BATCH x TRAIN_SEQ tokens on
+# TRAIN_LAYERS layers without remat, as phase 5 trains
+CARD_STEPS = (
+    ("decode", "granite-20b", "decode:2048:8", ()),
+    ("admit", "qwen3-8b", "prefill:1024:1", ()),
+    ("train", "qwen3-8b", f"train:{TRAIN_SEQ}:{TRAIN_BATCH}",
+     ("--layers", str(TRAIN_LAYERS), "--no-remat")),
+)
+# the kernel each of those steps must book
+CARD_KERNELS = {"decode": "decode_attention", "admit": "flash_attention",
+                "train": "flash_attention"}
+# one HGX H100 node (8 cards as (data, model) = (2, 4)) at full size
+NODE_STEPS = tuple(("qwen3-8b", s, ()) for s in (
+    "train_4k", "prefill_32k", "decode_32k", "long_500k")) + (
+    ("llama3-405b", "prefill_32k", ()),
+    ("deepseek-v3-671b", "decode_32k", ("--moe-shard-map",)),
+    ("mamba2-370m", "long_500k", ()),
+)
+# no count of the work a step needs can take less time than the card took
+BOUND_SHARE_MAX = 1.05
+DRYRUN_DIR = ROOT / "experiments" / "dryrun_torch"
+
+
+def dryrun_runs(runs, timeout: float = 600):
+    """``python -m repro_torch.launch.dryrun`` once for each argument list,
+    all started together: each in a process of its own, since the dry run's
+    fake process group must never share a process with a real one.
+    Returns each run's JSON."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                               "--out-dir", str(DRYRUN_DIR)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=ROOT) for args in runs]
+    try:
+        outs = [proc.communicate(timeout=timeout) for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+    results = []
+    for args, proc, (out, err) in zip(runs, procs, outs):
+        if proc.returncode != 0:
+            fail(f"dry run {' '.join(args)} exited {proc.returncode}:\n{err[-3000:]}")
+        line = next(x for x in out.splitlines() if x.startswith("[dryrun]"))
+        print(line, flush=True)
+        arch = args[args.index("--arch") + 1]
+        shape = args[args.index("--shape") + 1].replace(":", "_")
+        mesh = args[args.index("--mesh") + 1] if "--mesh" in args else "2x4"
+        tag = args[args.index("--tag") + 1]
+        results.append(json.loads((DRYRUN_DIR / f"{arch}__{shape}__{mesh}__{tag}.json")
+                                  .read_text()))
+    return results
+
+
+def dryrun_card(busy, train_peak_gb: float) -> None:
+    """The dry run of the steps phase 6 timed, on the one-card mesh with the
+    kernels booked (``--device cuda``): its bound, max(compute, memory) at
+    the H100 data sheet's rates, against the step's measured device-busy
+    time.  A share above BOUND_SHARE_MAX fails: the count would claim less
+    work than the card provably did."""
+    t0 = time.monotonic()
+    runs = [("--arch", arch, "--shape", shape, "--mesh", "1x1", "--tag", "card", *extra)
+            for _, arch, shape, extra in CARD_STEPS]
+    for (key, arch, shape, _), d in zip(CARD_STEPS, dryrun_runs(runs)):
+        compute_ms, memory_ms = d["compute_s"] * 1e3, d["memory_s"] * 1e3
+        bound_ms = max(compute_ms, memory_ms)
+        share = bound_ms / busy[key]
+        booked = {k: v["calls"] for k, v in d["kernels"].items()}
+        extra = {}
+        if key == "train":
+            extra = dict(dryrun_peak_gb=f"{d['peak_memory_per_device'] / 1e9:.2f}",
+                         measured_peak_gb=f"{train_peak_gb:.2f}")
+        phase("dryrun", mesh="1x1", step=key, config=arch, shape=shape,
+              layers=d["layers"], flops=f"{d['flops_per_device']:.4e}",
+              bytes=f"{d['bytes_per_device']:.4e}", compute_ms=f"{compute_ms:.3f}",
+              memory_ms=f"{memory_ms:.3f}", bound_ms=f"{bound_ms:.3f}",
+              bound_by="operations" if compute_ms >= memory_ms else "bytes",
+              busy_ms=f"{busy[key]:.3f}", bound_share=f"{share:.4f}",
+              booked=json.dumps(booked), trace_s=f"{d['trace_seconds']:.1f}", **extra)
+        if not booked.get(CARD_KERNELS[key]):
+            fail(f"dry run of {arch} {shape}: {CARD_KERNELS[key]} was not booked: {booked}")
+        if share > BOUND_SHARE_MAX:
+            fail(f"dry run of {arch} {shape}: bound {bound_ms:.3f} ms is "
+                 f"{share:.3f} of the measured {busy[key]:.3f} ms busy")
+    phase("dryrun", mesh="1x1", steps=len(runs), seconds=f"{time.monotonic() - t0:.1f}")
+
+
+def dryrun_node() -> None:
+    """The 8-card node at full size: each step's three terms (seconds at the
+    data sheet's rates, NVLink for the collectives) and the dominant one."""
+    t0 = time.monotonic()
+    runs = [("--arch", arch, "--shape", shape, "--tag", "node", *extra)
+            for arch, shape, extra in NODE_STEPS]
+    for (arch, shape, extra), d in zip(NODE_STEPS, dryrun_runs(runs)):
+        phase("dryrun", mesh="2x4", config=arch, shape=shape,
+              moe_shard_map="--moe-shard-map" in extra,
+              compute_s=f"{d['compute_s']:.4e}", memory_s=f"{d['memory_s']:.4e}",
+              collective_s=f"{d['collective_s']:.4e}", dominant=d["dominant"],
+              collectives=json.dumps(d["collective_bytes_by_axis"]),
+              peak_gb=f"{d['peak_memory_per_device'] / 1e9:.2f}",
+              useful_flops_ratio=f"{d['useful_flops_ratio']:.4f}",
+              trace_s=f"{d['trace_seconds']:.1f}")
+    phase("dryrun", mesh="2x4", steps=len(runs), seconds=f"{time.monotonic() - t0:.1f}")
+
+
+def ep_check(torch, get_config, seed, batch: int = 8, seq: int = 128) -> None:
+    """deepseek-v2-236b's MoE layer at full width in bf16, random weights
+    from ``seed``: ``moe_forward_shard_map`` on a one-rank NCCL group's
+    (1, 1) mesh against ``moe_forward`` on the same inputs.  With one rank
+    the expert-parallel dispatch routes every token at the same capacity,
+    so the two must agree to bf16 rounding (TOL) and the aux loss exactly."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import init_params
+
+    cfg = get_config("deepseek-v2-236b")
+    p = init_params(moe_mod.moe_specs(cfg), seed, torch.device("cuda"), torch.bfloat16,
+                    stacked=())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = randn(torch, (batch, seq, cfg.d_model), torch.bfloat16, gen)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        with torch.no_grad():
+            want, aux_want = moe_mod.moe_forward(p, cfg, x)
+            got, aux = moe_mod.moe_forward_shard_map(p, cfg, x, mesh)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            aux_err = abs(float(aux) - float(aux_want))
+            ms = cuda_ms(torch, lambda: moe_mod.moe_forward_shard_map(p, cfg, x, mesh), 5)
+            plain_ms = cuda_ms(torch, lambda: moe_mod.moe_forward(p, cfg, x), 5)
+    finally:
+        dist.destroy_process_group()
+    phase("ep", config=cfg.name, experts=cfg.num_experts, k=cfg.experts_per_token,
+          tokens=batch * seq, d_model=cfg.d_model, dtype="bfloat16", ranks=1,
+          max_abs_err=f"{err:.3e}", tol=TOL["bfloat16"], aux=f"{float(aux):.6f}",
+          aux_err=f"{aux_err:.3e}", ms=f"{ms:.3f}", moe_forward_ms=f"{plain_ms:.3f}")
+    if not (err <= TOL["bfloat16"] and aux_err <= 1e-6 and math.isfinite(err)):
+        fail(f"moe_forward_shard_map: max |err| {err:.3e}, aux err {aux_err:.3e}")
+    del p, x, got, want
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1168,9 +1319,10 @@ def main() -> None:
                                "ssm_scan": 0})
     counts.append(c)
     profile_decode(torch, engine, qwen, rng, Request)
-    profile_prefill(torch, engine, qwen, rng, Request,
-                    {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
-                     "matmul": MATMUL_NAMES})
+    busy = {"admit": profile_prefill(
+        torch, engine, qwen, rng, Request,
+        {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
+         "matmul": MATMUL_NAMES})}
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -1214,7 +1366,7 @@ def main() -> None:
         lambda admits, steps: {"decode_attention": steps * L, "flash_attention": admits * L,
                                "paged_decode_attention": 0, "ssm_scan": 0})
     counts.append(c)
-    profile_decode(torch, engine, granite, rng, Request)
+    busy["decode"] = profile_decode(torch, engine, granite, rng, Request)
     del engine
     torch.cuda.empty_cache()
     counts.append(ring_main(torch, ops, Model, long_context_variant, granite, params, rng))
@@ -1260,7 +1412,9 @@ def main() -> None:
     model, params, state, c = train_main(torch, ops, Model, flatten, training, qwen_train,
                                          args.seed, full=qwen)
     counts.append(c)
-    profile_train(torch, training, flatten, unflatten, model, params, state, args.seed)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy["train"] = profile_train(torch, training, flatten, unflatten, model, params, state,
+                                  args.seed)
     del model, params, state
     torch.cuda.empty_cache()
     phase("memory", before=f"training {mamba.name}",
@@ -1269,6 +1423,11 @@ def main() -> None:
     counts.append(c)
     del _
     torch.cuda.empty_cache()
+
+    # 7. the dry run against the card's measured steps; expert parallelism --------
+    dryrun_card(busy, train_peak_gb)
+    dryrun_node()
+    ep_check(torch, get_config, args.seed)
 
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)
@@ -1318,7 +1477,7 @@ DECODE_FAMILIES = {"decode_attention": ("decode_split", "decode_merge_kernel"),
 
 
 def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
-                   steps: int = 8) -> None:
+                   steps: int = 8) -> float:
     """Fill every slot, time ``steps`` decode steps on the host clock, then
     trace as many more with torch.profiler: device time by kernel family
     (``families`` as kernel_families takes them), the device's idle share
@@ -1351,9 +1510,10 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     while engine.num_live:
         engine.step()
+    return busy_ms
 
 
-def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -> None:
+def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -> float:
     """One admission of an ``L``-token prompt timed on the host clock, then
     another traced with torch.profiler: device time by kernel family
     (``families`` as kernel_families takes them), the device's idle share of
@@ -1381,6 +1541,7 @@ def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -
           kernels_per_prefill=n_kernels)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
     engine.step()  # hand back the finished requests
+    return busy_ms
 
 
 TRAIN_FAMILIES = {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
@@ -1388,7 +1549,7 @@ TRAIN_FAMILIES = {"flash_attention": ("flash_mma_kernel", "flash_attention_kerne
 
 
 def profile_train(torch, training, flatten, unflatten, model, params, state, seed,
-                  families=TRAIN_FAMILIES) -> None:
+                  families=TRAIN_FAMILIES) -> float:
     """One train step split by CUDA events into its forward (the loss),
     backward (autograd, the plain attention recompute included) and
     optimizer (the AdamW leaf loop), then one more step timed on the host
@@ -1440,6 +1601,7 @@ def profile_train(torch, training, flatten, unflatten, model, params, state, see
           **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fams.items()},
           kernels_per_step=n_kernels)
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    return busy_ms
 
 
 if __name__ == "__main__":

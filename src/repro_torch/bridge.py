@@ -37,7 +37,7 @@ def params_from_jax(
     if missing or extra:
         raise ValueError(f"{cfg.name}: missing keys {missing}, unexpected keys {extra}")
     out = {}
-    for key, (shape, _, _) in specs.items():
+    for key, (shape, *_) in specs.items():
         arr = np.asarray(flat[key], np.float32)
         if arr.shape != tuple(shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(shape)}")

@@ -56,6 +56,16 @@ def decode_attention_plain(
     return o.to(q.dtype)
 
 
+def work(B: int, S: int, H: int, KV: int, D: int, dbytes: int,
+         rows: Optional[int] = None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call over ``rows`` valid cache rows in all
+    (default: every row, ``B * S``): the valid k/v rows and the mask read
+    once, q read and the output written once."""
+    rows = B * S if rows is None else rows
+    return (4.0 * rows * H * D,
+            float(2 * rows * KV * D * dbytes + B * S + 2 * B * H * D * dbytes))
+
+
 def splits_for(B: int, KV: int, S: int, sm_count: int, tile: int = TILE) -> Tuple[int, int]:
     """(splits, split_len): enough splits that B * KV * splits blocks about
     fill the card once, each a whole number of ``tile``-token tiles."""

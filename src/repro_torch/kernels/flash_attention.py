@@ -16,7 +16,7 @@ holds the public wrapper in model layout.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +50,22 @@ def flash_attention_plain(
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def causal_pairs(S: int, window: Optional[int]) -> int:
+    """The (query, key) pairs a causal query row sees, over all ``S`` rows:
+    ``min(i + 1, window)`` for row ``i``."""
+    W = S if window is None else min(window, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def work(B: int, S: int, H: int, KV: int, D: int, window: Optional[int],
+         dbytes: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call: the multiply-adds of q·kᵀ and p·v over
+    the causal (windowed) pairs; q, k, v read once and the output written
+    once."""
+    return (4.0 * B * H * D * causal_pairs(S, window),
+            float(B * S * (2 * H + 2 * KV) * D * dbytes))
 
 
 def launch(

@@ -9,6 +9,16 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches`` (CPU
 calls are not counted), so a run can show that its main path went through
 the kernels: set the counts to 0 with :func:`reset_launches`, run, read.
 
+The dry run (:mod:`repro_torch.launch.dryrun`) takes a third route for
+fake tensors (``FakeTensorMode``): a fake CUDA tensor, or a fake one owned
+by a :class:`~repro_torch.roofline.analysis.StepCounter` that prices the
+card's kernels, launches nothing and builds nothing.  The wrapper returns
+outputs of the kernel's shapes and books the kernel's work, by its
+module's ``work`` formula, to that counter; it is not counted as a
+launch.  A DTensor input runs the wrapper on its
+local shards (:func:`on_shards`): batch and heads may be sharded, any
+other sharding is gathered first.
+
 Training reaches two of the kernels, flash attention and the SSD scan.
 When grad mode is on and an input requires grad, their wrappers on a card
 go through :class:`PlainGradient`: the forward is the kernel, exactly as
@@ -25,9 +35,10 @@ forward runs twice, and so counts two launches.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -35,13 +46,101 @@ from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssm_scan as _ssm
 
 
-def _route(t: torch.Tensor, what: str) -> bool:
-    """True for the kernel, False for the plain version."""
+def _route(t: torch.Tensor, what: str) -> str:
+    """"kernel", "plain" (the CPU), or "fake" (the dry run's card)."""
+    from repro_torch.roofline.analysis import booking_counter
+
     if t.device.type == "cuda":
-        return True
+        return "fake" if isinstance(t, FakeTensor) else "kernel"
     if t.device.type == "cpu":
-        return False
+        return "fake" if booking_counter(t) is not None else "plain"
     raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
+
+
+def _book(t: torch.Tensor, what: str, work: Tuple[float, float]) -> None:
+    """Book a fake call's (FLOPs, bytes) to the StepCounter owning ``t``."""
+    from repro_torch.roofline.analysis import booking_counter
+
+    counter = booking_counter(t)
+    if counter is not None:
+        counter.book(what, *work)
+
+
+# (batch dim, heads dim) of a wrapper's tensor argument or output; None: none
+Dims = Tuple[Optional[int], Optional[int]]
+
+
+def on_shards(fn: Callable, args: Sequence[torch.Tensor], dims: Sequence[Dims],
+               out_dims: Sequence[Dims]):
+    """``fn`` on the local shards of DTensor ``args`` (``args[0]`` leads).
+    On each mesh axis where the lead is sharded over its batch (or heads)
+    and every argument's batch (heads) divides evenly, each argument is
+    sharded over its own; an argument with a single head keeps it whole
+    (GQA's one KV head serves every query head).  On every other axis all
+    arguments are gathered whole.  The redistributions are DTensor's own
+    collectives, so the dry run counts them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    lead = args[0]
+    mesh = lead.device_mesh
+    args = [a if isinstance(a, DTensor) else
+            DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for a in args]
+    in_pl = [[] for _ in args]
+    out_pl = [[] for _ in out_dims]
+    for axis, p in enumerate(lead.placements):
+        n = mesh.size(axis)
+        kind = next((j for j in (0, 1) if isinstance(p, Shard) and p.dim == dims[0][j]), None)
+        if kind is not None and not all(
+                d[kind] is None or a.shape[d[kind]] % n == 0 or (kind == 1 and a.shape[d[1]] == 1)
+                for a, d in zip(args, dims)):
+            kind = None
+        for pl, a, d in zip(in_pl, args, dims):
+            dim = None if kind is None else d[kind]
+            if dim is not None and kind == 1 and a.shape[dim] == 1:
+                dim = None
+            pl.append(Replicate() if dim is None else Shard(dim))
+        for pl, d in zip(out_pl, out_dims):
+            dim = None if kind is None else d[kind]
+            pl.append(Replicate() if dim is None else Shard(dim))
+    args = [_move_shards(a, pl) for a, pl in zip(args, in_pl)]
+    return local_map(fn, out_placements=tuple(tuple(pl) for pl in out_pl),
+                     in_placements=tuple(tuple(pl) for pl in in_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _move_shards(a, placements):
+    """``a`` with each mesh axis that shards one of its dimensions where
+    ``placements`` shard another moved by one all-to-all: each device keeps
+    its part of the new dimension from every device's part of the old one
+    (a GPU mesh's move; DTensor moves a CPU mesh's shards by an all-gather).
+    Uneven or doubly sharded dimensions are left to DTensor."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+
+    for axis, (p, want) in enumerate(zip(a.placements, placements)):
+        if not (isinstance(p, Shard) and isinstance(want, Shard) and p.dim != want.dim):
+            continue
+        src, dst, n = p.dim, want.dim, a.device_mesh.size(axis)
+        others = [q for i, q in enumerate(a.placements) if i != axis]
+        if (n == 1 or a.shape[src] % n or a.shape[dst] % n or Shard(src) in others
+                or Shard(dst) in others or a.to_local().shape[dst] % n):
+            continue
+        t = a.to_local()
+        x = t.unflatten(dst, (n, -1)).movedim(dst, 0).contiguous()
+        y = funcol.all_to_all_single_autograd(
+            x.flatten(0, 1), None, None, a.device_mesh.get_group(axis))
+        y = funcol.wait_tensor(y).reshape(x.shape).movedim(0, src).flatten(src, src + 1)
+        new = list(a.placements)
+        new[axis] = Shard(dst)
+        a = DTensor.from_local(y, a.device_mesh, new, run_check=False, shape=a.shape,
+                               stride=torch.empty(a.shape, device="meta").stride())
+    return a
+
+
+def _is_dtensor(t: torch.Tensor) -> bool:
+    return hasattr(t, "device_mesh")
 
 
 def _wants_grad(*inputs: torch.Tensor) -> bool:
@@ -93,6 +192,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention; (B, S, H, D) out."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if _is_dtensor(q):
+        return on_shards(lambda q, k, v: flash_attention(q, k, v, window, scale),
+                          (q, k, v), ((0, 2),) * 3, ((0, 2),))
 
     def plain(q, k, v):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # views, no copy
@@ -104,11 +206,19 @@ def flash_attention(
         flash_attention.launches += 1
         return out
 
-    if not _route(q, "flash_attention"):
+    def fake(q, k, v):
+        B, S, H, D = q.shape
+        _book(q, "flash_attention",
+              _fa.work(B, S, H, k.shape[2], D, window, q.element_size()))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    route = _route(q, "flash_attention")
+    if route == "plain":
         return plain(q, k, v)
+    call = fake if route == "fake" else kernel
     if _wants_grad(q, k, v):
-        return PlainGradient.apply(kernel, plain, q, k, v)
-    return kernel(q, k, v)
+        return PlainGradient.apply(call, plain, q, k, v)
+    return call(q, k, v)
 
 
 def decode_attention(
@@ -122,8 +232,16 @@ def decode_attention(
     no valid entry gives zeros."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     _refuse_grad("decode_attention", q, k, v)
+    if _is_dtensor(q):
+        return on_shards(lambda q, k, v, valid: decode_attention(q, k, v, valid, scale),
+                          (q, k, v, valid), ((0, 2), (0, 2), (0, 2), (0, None)), ((0, 2),))
+    route = _route(q, "decode_attention")
+    if route == "fake":  # every cache row priced valid: the mask holds no data
+        B, S, KV, D = k.shape
+        _book(q, "decode_attention", _dec.work(B, S, q.shape[2], KV, D, q.element_size()))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     q3 = q[:, 0]
-    if not _route(q, "decode_attention"):
+    if route == "plain":
         return _dec.decode_attention_plain(q3, k, v, valid, scale)[:, None]
     out = torch.empty(q3.shape, dtype=q.dtype, device=q.device)
     _dec.launch(q3, k, v, valid, out, scale)
@@ -142,8 +260,21 @@ def paged_decode_attention(
     """One-token decode over the paged pool; (B, 1, H, D) out."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     _refuse_grad("paged_decode_attention", q, pool_k, pool_v)
+    if _is_dtensor(q):
+        return on_shards(
+            lambda *a: paged_decode_attention(*a, scale=scale),
+            (q, pool_k, pool_v, page_tables, lengths),
+            ((0, 2), (None, 2), (None, 2), (0, None), (0, None)), ((0, 2),))
+    route = _route(q, "paged_decode_attention")
+    if route == "fake":  # every page of the table priced full: lengths hold no data
+        B, max_pages = page_tables.shape
+        tokens = B * max_pages * pool_k.shape[1]
+        _book(q, "paged_decode_attention", _paged.work(
+            B, tokens, q.shape[2], pool_k.shape[2], q.shape[3], q.element_size(),
+            page_tables.numel()))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     q3 = q[:, 0]
-    if not _route(q, "paged_decode_attention"):
+    if route == "plain":
         return _paged.paged_decode_attention_plain(
             q3, pool_k, pool_v, page_tables, lengths, scale
         )[:, None]
@@ -164,6 +295,10 @@ def ssm_scan(
     """Mamba2 SSD chunked scan; returns y (B, S, H, P) and the final state
     (B, H, P, N), both float32.  A sequence shorter than ``chunk`` is one
     chunk, as in the Pallas wrapper; otherwise ``S % chunk`` must be 0."""
+    if _is_dtensor(x):
+        return on_shards(lambda *a: ssm_scan(*a, chunk), (x, dt, A, B_, C_),
+                          ((0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+                          ((0, 2), (0, 1)))
     chunk = min(chunk, x.shape[1])
 
     def plain(x, dt, A, B_, C_):
@@ -177,11 +312,20 @@ def ssm_scan(
         ssm_scan.launches += 1
         return y, final
 
-    if not _route(x, "ssm_scan"):
+    def fake(x, dt, A, B_, C_):
+        Bb, S, H, P = x.shape
+        N = B_.shape[-1]
+        _book(x, "ssm_scan", _ssm.work(Bb, S, H, P, N, chunk))
+        return (torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device),
+                torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device))
+
+    route = _route(x, "ssm_scan")
+    if route == "plain":
         return plain(x, dt, A, B_, C_)
+    call = fake if route == "fake" else kernel
     if _wants_grad(x, dt, A, B_, C_):
-        return PlainGradient.apply(kernel, plain, x, dt, A, B_, C_)
-    return kernel(x, dt, A, B_, C_)
+        return PlainGradient.apply(call, plain, x, dt, A, B_, C_)
+    return call(x, dt, A, B_, C_)
 
 
 decode_attention.launches = 0

@@ -42,6 +42,15 @@ PAGED_WAVES = 4
 MIN_SPLIT_TILES = 2
 
 
+def work(B: int, tokens: int, H: int, KV: int, D: int, dbytes: int,
+         table_entries: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call over ``tokens`` valid tokens in all: their
+    k/v rows, the page table and the lengths read once, q read and the
+    output written once."""
+    return (4.0 * tokens * H * D,
+            float((2 * tokens * KV * D + 2 * B * H * D) * dbytes + table_entries * 4 + B * 4))
+
+
 def paged_splits(B: int, KV: int, max_pages: int, page_size: int, sm_count: int,
                  dtype: torch.dtype) -> Tuple[int, int]:
     """(splits, split_len) over the page table's width, ``max_pages *

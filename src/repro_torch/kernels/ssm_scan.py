@@ -85,6 +85,18 @@ def ssm_scan_plain(
     return (y_intra + y_inter).reshape(Bb, S, H, Pd), carry
 
 
+def work(B: int, S: int, H: int, P: int, N: int, L: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one scan: each input read once and each output
+    written once, in float32; the multiply-adds of C·Bᵀ (lower triangle,
+    once per chunk), of the intra-chunk term, of the entering state's term
+    and of the state update (the exponentials not counted)."""
+    tri = L * (L + 1) // 2
+    nc = S // L
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N + B * H * P * N)
+    flops = 2.0 * B * nc * tri * (N + H * P) + 2 * (2.0 * B * S * H * P * N)
+    return flops, float(nbytes)
+
+
 def launch(
     x: torch.Tensor,
     dt: torch.Tensor,

@@ -25,7 +25,9 @@ import torch
 
 from repro_torch.models import kernels_bridge
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
+from repro_torch.models.common import (
+    ParamSpec, PartitionSpec, apply_rope, is_fake, rmsnorm, split_heads, write_rows,
+)
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -34,25 +36,24 @@ Params = Dict[str, torch.Tensor]
 def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs: Dict[str, ParamSpec] = {
-        "wq": ((d, H * hd), "normal", None),
-        "wk": ((d, KV * hd), "normal", None),
-        "wv": ((d, KV * hd), "normal", None),
-        "wo": ((H * hd, d), "normal", None),
+        "wq": ((d, H * hd), "normal", None, (None, "model")),
+        "wk": ((d, KV * hd), "normal", None, (None, "model")),
+        "wv": ((d, KV * hd), "normal", None, (None, "model")),
+        "wo": ((H * hd, d), "normal", None, ("model", None)),
     }
     if cfg.qk_norm:
-        specs["q_norm"] = ((hd,), "ones", None)
-        specs["k_norm"] = ((hd,), "ones", None)
+        specs["q_norm"] = ((hd,), "ones", None, (None,))
+        specs["k_norm"] = ((hd,), "ones", None, (None,))
     return specs
 
 
 def _gqa_qkv(
     p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = split_heads(x @ p["wq"], H, hd)
+    k = split_heads(x @ p["wk"], KV, hd)
+    v = split_heads(x @ p["wv"], KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -115,6 +116,18 @@ def gqa_init_cache(
     return cache
 
 
+def gqa_cache_specs(
+    cfg: ModelConfig, dp: Tuple[str, ...], seq_axis: Optional[str]
+) -> Dict[str, PartitionSpec]:
+    """Partition specs of the flat cache's leaves: batch over ``dp``, rows
+    over ``seq_axis``."""
+    spec = (dp, seq_axis, None, None)
+    out = {"k": spec, "v": spec}
+    if cfg.sliding_window:
+        out["slot_pos"] = (dp, None)
+    return out
+
+
 def normalize_pos(pos, batch: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Broadcast a scalar-or-(B,) position to ``(B,)`` and derive liveness.
 
@@ -128,8 +141,13 @@ def normalize_pos(pos, batch: int, device=None) -> Tuple[torch.Tensor, torch.Ten
 def live_rows(live: torch.Tensor) -> torch.Tensor:
     """Indices of the live slots.  Accepts a ``(B,)`` bool mask, or indices
     already derived from one (the transformer derives them once per decode
-    step, since finding them waits for the device)."""
-    return live.nonzero().flatten() if live.dtype == torch.bool else live
+    step, since finding them waits for the device).  A fake mask (the dry
+    run's) holds no data: every slot is priced live."""
+    if live.dtype != torch.bool:
+        return live
+    if is_fake(live):
+        return torch.arange(live.shape[0], device=live.device)
+    return live.nonzero().flatten()
 
 
 def _masked_row_update(
@@ -140,9 +158,7 @@ def _masked_row_update(
 ) -> torch.Tensor:
     """Write ``new[b]`` at row ``idx[b]`` of ``cache[b]`` for the live slots
     only, in place; rows of dead slots stay untouched."""
-    rows = live_rows(live)
-    cache[rows, idx[rows]] = new[rows, 0]
-    return cache
+    return write_rows(cache, live_rows(live), new, idx)
 
 
 def prefix_valid(pos: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -175,9 +191,8 @@ def gqa_decode(
         slot = cpos % W
         _masked_row_update(cache["k"], k_new, slot, live)
         _masked_row_update(cache["v"], v_new, slot, live)
-        rows = live_rows(live)
         slot_pos = cache["slot_pos"]
-        slot_pos[rows, slot[rows]] = cpos[rows].to(slot_pos.dtype)
+        _masked_row_update(slot_pos, cpos[:, None].to(slot_pos.dtype), slot, live)
         c = cpos[:, None]
         valid = (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
     else:
@@ -251,16 +266,16 @@ def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     specs: Dict[str, ParamSpec] = {}
     if qr:
-        specs["w_dq"] = ((d, qr), "normal", None)
-        specs["q_norm"] = ((qr,), "ones", None)
-        specs["w_uq"] = ((qr, H * (nd + rd)), "normal", None)
+        specs["w_dq"] = ((d, qr), "normal", None, (None, None))
+        specs["q_norm"] = ((qr,), "ones", None, (None,))
+        specs["w_uq"] = ((qr, H * (nd + rd)), "normal", None, (None, "model"))
     else:
-        specs["w_uq"] = ((d, H * (nd + rd)), "normal", None)
-    specs["w_dkv"] = ((d, r + rd), "normal", None)
-    specs["kv_norm"] = ((r,), "ones", None)
-    specs["w_uk"] = ((r, H * nd), "normal", None)
-    specs["w_uv"] = ((r, H * vd), "normal", None)
-    specs["wo"] = ((H * vd, d), "normal", None)
+        specs["w_uq"] = ((d, H * (nd + rd)), "normal", None, (None, "model"))
+    specs["w_dkv"] = ((d, r + rd), "normal", None, (None, None))
+    specs["kv_norm"] = ((r,), "ones", None, (None,))
+    specs["w_uk"] = ((r, H * nd), "normal", None, (None, "model"))
+    specs["w_uv"] = ((r, H * vd), "normal", None, (None, "model"))
+    specs["wo"] = ((H * vd, d), "normal", None, ("model", None))
     return specs
 
 
@@ -268,10 +283,9 @@ def _mla_q(
     p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The query's no-RoPE and RoPE parts, (B, S, H, nd) and (B, S, H, rd)."""
-    B, S, _ = x.shape
     H, nd, rd = cfg.num_heads, cfg.nope_head_dim, cfg.rope_head_dim
     cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps) if cfg.q_lora_rank else x
-    q = (cq @ p["w_uq"]).reshape(B, S, H, nd + rd)
+    q = split_heads(cq @ p["w_uq"], H, nd + rd)
     return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
 
 
@@ -297,8 +311,8 @@ def _mla_attend(
     nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     ckv, krope = _mla_latent(p, cfg, x, positions)
-    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, nd)
-    v = (ckv @ p["w_uv"]).reshape(B, S, H, vd)
+    k_nope = split_heads(ckv @ p["w_uk"], H, nd)
+    v = split_heads(ckv @ p["w_uv"], H, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
     o = kernels_bridge.causal_attention(
@@ -350,6 +364,16 @@ def mla_init_cache(
     return cache
 
 
+def mla_cache_specs(
+    cfg: ModelConfig, dp: Tuple[str, ...], seq_axis: Optional[str]
+) -> Dict[str, PartitionSpec]:
+    """Partition specs of the latent cache's leaves, as :func:`gqa_cache_specs`."""
+    out = {"ckv": (dp, seq_axis, None), "krope": (dp, seq_axis, None)}
+    if cfg.sliding_window:
+        out["slot_pos"] = (dp, None)
+    return out
+
+
 def mla_decode(
     p: Params,
     cfg: ModelConfig,
@@ -367,7 +391,7 @@ def mla_decode(
     as the reference's does."""
     B = x.shape[0]
     H = cfg.num_heads
-    nd, rd, vd, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     cpos, derived_live = normalize_pos(pos, B, x.device)
     live = derived_live if live is None else live
     q_nope, q_rope = _mla_q(p, cfg, x, cpos[:, None])  # (B,1,H,nd), (B,1,H,rd)
@@ -378,9 +402,8 @@ def mla_decode(
         slot = cpos % W
         _masked_row_update(ckv, ckv_new, slot, live)
         _masked_row_update(krope, krope_new, slot, live)
-        rows = live_rows(live)
         slot_pos = cache["slot_pos"]
-        slot_pos[rows, slot[rows]] = cpos[rows].to(slot_pos.dtype)
+        _masked_row_update(slot_pos, cpos[:, None].to(slot_pos.dtype), slot, live)
         c = cpos[:, None]
         valid = (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
     else:
@@ -388,12 +411,12 @@ def mla_decode(
         _masked_row_update(krope, krope_new, cpos, live)
         if valid is None:
             valid = prefix_valid(cpos, ckv.shape[1])
-    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"].reshape(r, H, nd))
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, split_heads(p["w_uk"], H, nd))
     scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, krope))
     scores = scores.float() / math.sqrt(nd + rd)
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
     o_latent = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # (B, 1, H, r)
-    o = torch.einsum("bqhr,rhv->bqhv", o_latent, p["w_uv"].reshape(r, H, vd))
+    o = torch.einsum("bqhr,rhv->bqhv", o_latent, split_heads(p["w_uv"], H, vd))
     return o.reshape(B, 1, H * vd) @ p["wo"], cache

@@ -16,15 +16,22 @@ import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# flat key path -> (shape, init, scale); init in {"normal", "ones", "zeros"}
-ParamSpec = Tuple[Tuple[int, ...], str, Optional[float]]
+# one entry a dimension: the mesh axis (or tuple of axes) that shards it, or
+# None (the JAX ``PartitionSpec``)
+PartitionSpec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+# flat key path -> (shape, init, scale, partition spec); init in
+# {"normal", "ones", "zeros"}
+ParamSpec = Tuple[Tuple[int, ...], str, Optional[float], PartitionSpec]
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The device an entry point runs on.  Asking for CUDA on a machine
-    without it raises: nothing falls back to the CPU silently."""
+    without it raises: nothing falls back to the CPU silently.  Under a
+    ``FakeTensorMode`` (the dry run) nothing is allocated, so fake CUDA
+    tensors need no card."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if (dev.type == "cuda" and not torch.cuda.is_available()
+            and torch._guards.detect_fake_mode() is None):
         raise RuntimeError(
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU"
@@ -52,7 +59,7 @@ def init_params(
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     flat: Dict[str, torch.Tensor] = {}
-    for name, (shape, init, scale) in specs.items():
+    for name, (shape, init, scale, _) in specs.items():
         if init == "ones":
             flat[name] = torch.ones(shape, dtype=dtype, device=device)
             continue
@@ -139,3 +146,158 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def batch_spec(mesh_axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The data-parallel axes: ('pod','data') on a multi-pod mesh, ('data',)
+    on a single pod."""
+    return tuple(a for a in mesh_axes if a in ("pod", "data"))
+
+
+# -- sharded (DTensor) tensors: the dry run's ------------------------------------
+
+
+def is_dtensor(t: Any) -> bool:
+    return hasattr(t, "device_mesh")
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A tensor without data: the dry run's fake tensors, or a DTensor of them."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t.to_local() if is_dtensor(t) else t, FakeTensor)
+
+
+def _as_dtensor(t: torch.Tensor, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def shard_span(n: int, mesh, placements, dim: int = 0) -> Tuple[int, int]:
+    """(start, length) of this rank's shard of a dimension ``dim`` of size
+    ``n`` under ``placements``: the mesh axes that shard it split it in
+    turn, in even chunks (DTensor's layout)."""
+    start, size = 0, n
+    for axis, (p, c) in enumerate(zip(placements, mesh.get_coordinate())):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(axis))
+            start += c * chunk
+            size = max(0, min(chunk, size - c * chunk))
+    return start, size
+
+
+def _shard_offset(t, dim: int) -> int:
+    """Where this rank's shard of DTensor ``t`` starts along ``dim``."""
+    return shard_span(t.shape[dim], t.device_mesh, t.placements, dim)[0]
+
+
+def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  A DTensor table sharded over its rows (the
+    vocabulary) is looked up shard by shard: each shard looks up the ids
+    among its own rows and gives zeros for the rest, and the partial sums
+    are reduced (:func:`settle`)."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    ids = _as_dtensor(ids, mesh)
+    ids_pl, out_pl = [], []
+    for p, q in zip(table.placements, ids.placements):
+        if p == Shard(0):
+            ids_pl.append(Replicate())
+            out_pl.append(Partial())
+        elif p == Shard(1):
+            ids_pl.append(Replicate())
+            out_pl.append(Shard(ids.ndim))
+        else:
+            ids_pl.append(q)
+            out_pl.append(q)
+    r0 = _shard_offset(table, 0)
+
+    def lookup(t, i):
+        j = i - r0
+        ok = (j >= 0) & (j < t.shape[0])
+        return (torch.nn.functional.embedding(j.clamp(0, t.shape[0] - 1), t)
+                * ok[..., None].to(t.dtype))
+
+    return settle(local_map(lookup, out_placements=(tuple(out_pl),),
+                            in_placements=(tuple(table.placements), tuple(ids_pl)),
+                            device_mesh=mesh, redistribute_inputs=True)(table, ids))
+
+
+def write_rows(cache: torch.Tensor, rows: torch.Tensor, new: torch.Tensor,
+               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In place, the live slots ``rows`` only: ``cache[rows, idx[rows]] =
+    new[rows, 0]`` (a row at a position per slot), or without ``idx``
+    ``cache[rows] = new[rows]`` (a slot's whole entry).  A DTensor cache is
+    written shard by shard for every slot (the dry run prices every slot
+    live), each shard keeping the positions that fall in its rows."""
+    if not is_dtensor(cache):
+        if idx is None:
+            cache[rows] = new[rows]
+        else:
+            cache[rows, idx[rows]] = new[rows, 0]
+        return cache
+    if rows.shape[0] != cache.shape[0]:
+        raise NotImplementedError("a DTensor cache is written for every slot, none idle")
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache.device_mesh
+    cache_pl = tuple(cache.placements)
+    new_pl = tuple(Replicate() if idx is not None and p == Shard(1) else p for p in cache_pl)
+    if idx is None:
+        def write(c, n):
+            c.copy_(n)
+
+        local_map(write, out_placements=None, in_placements=(cache_pl, new_pl),
+                  device_mesh=mesh, redistribute_inputs=True)(cache, _as_dtensor(new, mesh))
+        return cache
+    idx_pl = tuple(p if p == Shard(0) else Replicate() for p in cache_pl)
+    s0 = _shard_offset(cache, 1)
+
+    def write_at(c, n, i):
+        j = i - s0
+        ok = (j >= 0) & (j < c.shape[1])
+        j = j.clamp(0, c.shape[1] - 1)
+        b = torch.arange(c.shape[0], device=c.device)
+        cur = c[b, j]
+        c[b, j] = torch.where(ok.view((-1,) + (1,) * (cur.dim() - 1)), n[:, 0], cur)
+
+    local_map(write_at, out_placements=None, in_placements=(cache_pl, new_pl, idx_pl),
+              device_mesh=mesh, redistribute_inputs=True)(
+        cache, _as_dtensor(new, mesh), _as_dtensor(idx, mesh))
+    return cache
+
+
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``t`` (..., heads * head_dim) as (..., heads, head_dim).  A DTensor
+    sharded over its last dimension on an axis that does not divide
+    ``heads`` is gathered over that axis first: DTensor splits a sharded
+    dimension only where each shard holds whole heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+
+        last = t.ndim - 1
+        pl = [Replicate() if p.is_shard(last) and heads % t.device_mesh.size(i) else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(placements=pl)
+    return t.reshape(*t.shape[:-1], heads, head_dim)
+
+
+def settle(t: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output as the residual stream holds it: a DTensor keeps
+    its batch sharding and is made whole on every other axis (partial sums
+    reduced: the tensor-parallel all-reduce).  Plain tensors pass as they
+    are."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [p if p == Shard(0) else Replicate() for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(placements=pl)

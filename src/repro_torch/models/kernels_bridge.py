@@ -68,6 +68,9 @@ def causal_attention(
     plain path, whose score tile never exceeds ``q_block`` query rows."""
     if q.shape[-1] == v.shape[-1]:
         return ops.flash_attention(q, k, v, window=window, scale=scale)
+    if hasattr(q, "device_mesh"):  # DTensors: heads and batch shard, as flash's do
+        return ops.on_shards(lambda q, k, v: causal_attention(q, k, v, window, scale, q_block),
+                             (q, k, v), ((0, 2),) * 3, ((0, 2),))
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     S = q.shape[1]
     if S <= q_block:

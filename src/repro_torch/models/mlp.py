@@ -17,9 +17,9 @@ def mlp_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     specs: Dict[str, ParamSpec] = {}
     if cfg.mlp_gated:
-        specs["w_gate"] = ((d, ff), "normal", None)
-    specs["w_up"] = ((d, ff), "normal", None)
-    specs["w_down"] = ((ff, d), "normal", None)
+        specs["w_gate"] = ((d, ff), "normal", None, (None, "model"))
+    specs["w_up"] = ((d, ff), "normal", None, (None, "model"))
+    specs["w_down"] = ((ff, d), "normal", None, ("model", None))
     return specs
 
 

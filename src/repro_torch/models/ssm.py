@@ -23,7 +23,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models import kernels_bridge
 from repro_torch.models.attention import live_rows
-from repro_torch.models.common import ParamSpec, rmsnorm
+from repro_torch.models.common import (
+    ParamSpec, PartitionSpec, rmsnorm, split_heads, write_rows,
+)
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -34,16 +36,16 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, di, n, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * n
     return {
-        "w_z": ((d, di), "normal", None),
-        "w_xbc": ((d, conv_ch), "normal", None),
-        "w_dt": ((d, H), "normal", None),
-        "conv_w": ((cfg.conv_width, conv_ch), "normal", None),
-        "conv_b": ((conv_ch,), "zeros", None),
-        "A_log": ((H,), "zeros", None),
-        "dt_bias": ((H,), "zeros", None),
-        "D": ((H,), "ones", None),
-        "ssm_norm": ((di,), "ones", None),
-        "w_out": ((di, d), "normal", None),
+        "w_z": ((d, di), "normal", None, (None, "model")),
+        "w_xbc": ((d, conv_ch), "normal", None, (None, "model")),
+        "w_dt": ((d, H), "normal", None, (None, "model")),
+        "conv_w": ((cfg.conv_width, conv_ch), "normal", None, (None, "model")),
+        "conv_b": ((conv_ch,), "zeros", None, ("model",)),
+        "A_log": ((H,), "zeros", None, (None,)),
+        "dt_bias": ((H,), "zeros", None, (None,)),
+        "D": ((H,), "ones", None, (None,)),
+        "ssm_norm": ((di,), "ones", None, ("model",)),
+        "w_out": ((di, d), "normal", None, ("model", None)),
     }
 
 
@@ -100,7 +102,7 @@ def _mix(
     di, n, H, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC_raw, dt = _project(p, x)
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
-    xs = xBC[..., :di].reshape(B, S, H, hd)
+    xs = split_heads(xBC[..., :di], H, hd)
     B_ = xBC[..., di:di + n]
     C_ = xBC[..., di + n:]
     dt_ = F.softplus(dt.float() + p["dt_bias"])
@@ -160,6 +162,12 @@ def ssm_init_cache(
     }
 
 
+def ssm_cache_specs(cfg: ModelConfig, dp: Tuple[str, ...]) -> Dict[str, PartitionSpec]:
+    """Partition specs of the decode cache: the conv tail's channels and the
+    state's heads over "model" (as ``w_xbc`` is sharded)."""
+    return {"conv": (dp, None, "model"), "state": (dp, "model", None, None)}
+
+
 def ssm_decode(
     p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     live: Optional[torch.Tensor] = None,  # (B,) bool or live-slot indices; None: all live
@@ -172,7 +180,7 @@ def ssm_decode(
     hist = torch.cat([cache["conv"], xBC], dim=1)  # (B,W,C)
     conv_out = torch.einsum("bwc,wc->bc", hist, p["conv_w"]) + p["conv_b"]
     xBC1 = F.silu(conv_out)  # (B,C)
-    xs = xBC1[:, :di].reshape(B, H, hd)
+    xs = split_heads(xBC1[:, :di], H, hd)
     B_ = xBC1[:, di:di + n]
     C_ = xBC1[:, di + n:]
     dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])  # (B,H)
@@ -188,6 +196,6 @@ def ssm_decode(
         cache["state"].copy_(new_state)
     else:
         rows = live_rows(live)
-        cache["conv"][rows] = hist[rows, 1:]
-        cache["state"][rows] = new_state[rows]
+        write_rows(cache["conv"], rows, hist[:, 1:])
+        write_rows(cache["state"], rows, new_state)
     return y @ p["w_out"], cache

@@ -48,7 +48,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    DTYPES, ParamSpec, init_params, resolve_device, rmsnorm,
+    DTYPES, ParamSpec, PartitionSpec, batch_spec, embedding, init_params, is_dtensor,
+    resolve_device, rmsnorm, settle,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_forward, mlp_specs
@@ -121,6 +122,12 @@ class Model:
     # recompute each stacked block in the backward of :meth:`hidden`
     # (serving ignores it)
     remat: bool = True
+    # the mesh's axis names, whose data axes :meth:`cache_specs` shards the
+    # batch over
+    mesh_axes: Tuple[str, ...] = ("data", "model")
+    # a DeviceMesh with a "model" axis: the MoE layers then dispatch expert
+    # parallel over it (``moe_forward_shard_map``)
+    moe_mesh: Any = None
 
     def __post_init__(self):
         cfg = self.cfg
@@ -161,17 +168,17 @@ class Model:
 
     # ------------------------------------------------------------------ init --
     def param_specs(self) -> Dict[str, ParamSpec]:
-        """Flat ``/``-joined key path -> (shape, init, scale): the key tree
-        and shapes of the JAX ``Model.init``."""
+        """Flat ``/``-joined key path -> (shape, init, scale, partition
+        spec): the key tree, shapes and specs of the JAX ``Model.init``."""
         cfg = self.cfg
         d = cfg.d_model
         specs: Dict[str, ParamSpec] = {
-            "embed": ((cfg.padded_vocab, d), "normal", 0.02),
+            "embed": ((cfg.padded_vocab, d), "normal", 0.02, ("model", None)),
         }
         if not cfg.tie_embeddings:
-            specs["head"] = ((d, cfg.padded_vocab), "normal", None)
-        specs["final_norm"] = ((d,), "ones", None)
-        ln: ParamSpec = ((d,), "ones", None)
+            specs["head"] = ((d, cfg.padded_vocab), "normal", None, (None, "model"))
+        specs["final_norm"] = ((d,), "ones", None, (None,))
+        ln: ParamSpec = ((d,), "ones", None, (None,))
 
         def attn_block(ffn: str, ffn_specs: Dict[str, ParamSpec]) -> Dict[str, ParamSpec]:
             return {"ln1": ln, **{f"attn/{k}": s for k, s in _attn_specs(cfg).items()},
@@ -194,12 +201,18 @@ class Model:
             for i in range(cfg.shared_attn_every):
                 block[f"mamba_{i}/ln"] = ln
                 block.update({f"mamba_{i}/{k}": s for k, s in ssm_mod.ssm_specs(cfg).items()})
-        for k, (shape, init, scale) in block.items():
-            specs[f"layers/{k}"] = ((self.depth,) + shape, init, scale)
+        for k, (shape, init, scale, part) in block.items():
+            specs[f"layers/{k}"] = ((self.depth,) + shape, init, scale, (None,) + part)
         if cfg.mtp:
-            specs["mtp/proj"] = ((2 * d, d), "normal", None)
-            specs["mtp/norm"] = ((d,), "ones", None)
+            specs["mtp/proj"] = ((2 * d, d), "normal", None, (None, "model"))
+            specs["mtp/norm"] = ((d,), "ones", None, (None,))
         return specs
+
+    def param_partition_specs(self) -> Dict[str, PartitionSpec]:
+        """Flat key path -> the parameter's partition spec: one entry a
+        dimension, a mesh axis name or None (the JAX ``ParamFactory``'s
+        ``PartitionSpec``s; the stacked layer axis is never sharded)."""
+        return {k: spec[3] for k, spec in self.param_specs().items()}
 
     def init(self, seed: int = 0, device: Device = "cuda") -> Params:
         """Random parameters from ``seed`` (a ``torch.Generator`` on
@@ -210,7 +223,7 @@ class Model:
 
     # --------------------------------------------------------------- forward --
     def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+        return embedding(params["embed"], tokens)
 
     def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -221,7 +234,11 @@ class Model:
             # mask the padding ids so sampling/softmax never sees them; in
             # place is safe under autograd, since the product saves its
             # inputs and not its output, and the padded ids get gradient 0
-            out[..., cfg.vocab_size:] = -1e30
+            if is_dtensor(out):  # sharded over the vocabulary, maybe partial
+                pad = torch.arange(cfg.padded_vocab, device=out.device) >= cfg.vocab_size
+                out = out.masked_fill(pad, -1e30)
+            else:
+                out[..., cfg.vocab_size:] = -1e30
         return out
 
     def _ffn_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
@@ -229,8 +246,17 @@ class Model:
         training and is dropped here, as the reference's serving drops it)."""
         h = rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
         if "moe" in lp:
-            return x + moe_mod.moe_forward(lp["moe"], self.cfg, h)[0]
-        return x + mlp_forward(lp["mlp"], h)
+            return x + settle(self._moe(lp["moe"], h)[0])
+        return x + settle(mlp_forward(lp["mlp"], h))
+
+    def _moe(self, p: Params, h: torch.Tensor):
+        """The MoE layer: expert parallel over ``moe_mesh``'s "model" axis
+        when the model has one, else the capacity dispatch."""
+        mesh = self.moe_mesh
+        if mesh is None:
+            return moe_mod.moe_forward(p, self.cfg, h)
+        dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+        return moe_mod.moe_forward_shard_map(p, self.cfg, h, mesh, dp_axes=dp)
 
     # --------------------------------------------------------------- training --
     def _train_block(
@@ -242,18 +268,19 @@ class Model:
         cfg = self.cfg
         eps = cfg.norm_eps
         if cfg.arch_type in BLOCK_TYPES:
-            x = x + _attn_forward(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
+            x = x + settle(_attn_forward(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions))
             h = rmsnorm(x, lp["ln2"], eps)
             if "moe" in lp:
-                out, aux = moe_mod.moe_forward(lp["moe"], cfg, h)
-                return x + out, aux
-            return x + mlp_forward(lp["mlp"], h), 0.0
+                out, aux = self._moe(lp["moe"], h)
+                return x + settle(out), aux
+            return x + settle(mlp_forward(lp["mlp"], h)), 0.0
         if cfg.arch_type == "ssm":
-            return x + ssm_mod.ssm_forward(lp, cfg, rmsnorm(x, lp["ln"], eps)), 0.0
+            return x + settle(ssm_mod.ssm_forward(lp, cfg, rmsnorm(x, lp["ln"], eps))), 0.0
         for j in range(cfg.shared_attn_every):  # hybrid superblock
             mp = lp[f"mamba_{j}"]
-            x = x + ssm_mod.ssm_forward(mp, cfg, rmsnorm(x, mp["ln"], eps))
-        return x + _attn_forward(shared, cfg, rmsnorm(x, shared["ln"], eps), positions), 0.0
+            x = x + settle(ssm_mod.ssm_forward(mp, cfg, rmsnorm(x, mp["ln"], eps)))
+        a = _attn_forward(shared, cfg, rmsnorm(x, shared["ln"], eps), positions)
+        return x + settle(a), 0.0
 
     def hidden(
         self,
@@ -319,10 +346,10 @@ class Model:
         for lp in self._blocks(params):
             if cfg.arch_type in BLOCK_TYPES:
                 a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
-                x = self._ffn_residual(lp, x + a)
+                x = self._ffn_residual(lp, x + settle(a))
             elif cfg.arch_type == "ssm":
                 y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
-                x = x + y
+                x = x + settle(y)
             else:  # hybrid superblock: Mamba2 sublayers, then the shared attention
                 c = {}
                 for j in range(cfg.shared_attn_every):
@@ -330,12 +357,12 @@ class Model:
                     y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(
                         mp, cfg, rmsnorm(x, mp["ln"], eps), lengths
                     )
-                    x = x + y
+                    x = x + settle(y)
                 shared = params["shared_attn"]
                 a, c["attn"] = _attn_prefill(
                     shared, cfg, rmsnorm(x, shared["ln"], eps), positions
                 )
-                x = x + a
+                x = x + settle(a)
             caches.append(c)
         cache = {f"dense_{i}": caches[i] for i in range(self.n_dense)}
         cache["layers"] = _stack(caches[self.n_dense:])
@@ -374,6 +401,33 @@ class Model:
         return self._stacked_cache(
             batch, dev, lambda: _attn_init_cache(self.cfg, batch, max_len, dev)
         )
+
+    def cache_specs(
+        self, seq_axis: Optional[str] = None, dp: Optional[Tuple[str, ...]] = None
+    ) -> Params:
+        """The decode cache's partition specs, in :meth:`init_cache`'s tree
+        (the stacked leaves with a leading ``None``): batch over ``dp``
+        (default: the mesh's data axes), attention rows over ``seq_axis``,
+        SSM heads over "model"."""
+        cfg = self.cfg
+        dp = batch_spec(self.mesh_axes) if dp is None else dp
+
+        def with_layer(tree):
+            return {k: with_layer(v) if isinstance(v, dict) else (None,) + v
+                    for k, v in tree.items()}
+
+        make = attn.mla_cache_specs if cfg.attention_kind == "mla" else attn.gqa_cache_specs
+        a_specs = make(cfg, dp, seq_axis)
+        if cfg.arch_type in BLOCK_TYPES:
+            out = {f"dense_{i}": a_specs for i in range(self.n_dense)}
+            out["layers"] = with_layer(a_specs)
+            return out
+        if cfg.arch_type == "ssm":
+            return {"layers": with_layer(ssm_mod.ssm_cache_specs(cfg, dp))}
+        sb = {f"mamba_{i}": ssm_mod.ssm_cache_specs(cfg, dp)
+              for i in range(cfg.shared_attn_every)}
+        sb["attn"] = a_specs
+        return {"layers": with_layer(sb)}
 
     def decode_step(
         self, params: Params, cache: Params, token: torch.Tensor, pos
@@ -453,19 +507,19 @@ class Model:
         for lp, lc in zip(self._blocks(params), self._blocks(cache)):
             if cfg.arch_type in BLOCK_TYPES:
                 a = attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc)
-                x = self._ffn_residual(lp, x + a)
+                x = self._ffn_residual(lp, x + settle(a))
             elif cfg.arch_type == "ssm":
                 y, _ = ssm_mod.ssm_decode(lp, cfg, rmsnorm(x, lp["ln"], eps), lc, rows)
-                x = x + y
+                x = x + settle(y)
             else:  # hybrid superblock
                 for j in range(cfg.shared_attn_every):
                     mp = lp[f"mamba_{j}"]
                     y, _ = ssm_mod.ssm_decode(
                         mp, cfg, rmsnorm(x, mp["ln"], eps), lc[f"mamba_{j}"], rows
                     )
-                    x = x + y
+                    x = x + settle(y)
                 shared = params["shared_attn"]
-                x = x + attend(shared, rmsnorm(x, shared["ln"], eps), lc["attn"])
+                x = x + settle(attend(shared, rmsnorm(x, shared["ln"], eps), lc["attn"]))
         return self.logits(params, x), cache
 
     # ------------------------------------------------------ prefill scatter --

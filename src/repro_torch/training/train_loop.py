@@ -14,13 +14,15 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models.common import flatten, rmsnorm, unflatten
+from repro_torch.models.common import embedding, flatten, rmsnorm, settle, unflatten
 from repro_torch.models.transformer import Model
 from repro_torch.training import adamw
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    logits = logits.float()
+    # DTensor logits sharded over the vocabulary are gathered whole first
+    # (DTensor takes no gather over a sharded dimension)
+    logits = settle(logits).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None])[..., 0]
     return (logz - gold).mean()
@@ -31,7 +33,7 @@ def _mtp_loss(model: Model, params: Any, h: torch.Tensor, batch: Dict) -> torch.
     (the token two ahead) from [h_t ; embed(label_t)] through the MTP
     projection and the shared output head."""
     labels = batch["labels"]
-    emb_next = params["embed"][labels]  # label_t = token t+1
+    emb_next = embedding(params["embed"], labels)  # label_t = token t+1
     feat = torch.cat([h[:, :-1], emb_next[:, :-1]], dim=-1)
     mtp = params["mtp"]
     h_mtp = rmsnorm(feat @ mtp["proj"], mtp["norm"], model.cfg.norm_eps)
@@ -67,6 +69,11 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
             # a leaf the loss does not reach gets zeros, as under jax.grad
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
                                         materialize_grads=True)
+        # the gradient sync of sharded (DTensor) parameters: each gradient,
+        # partial over the axes its parameter is replicated on, is reduced
+        # once to its parameter's placements
+        grads = [g.redistribute(placements=p.placements) if hasattr(p, "placements") else g
+                 for g, p in zip(grads, leaves.values())]
         metrics = {k: v.detach() for k, v in metrics.items()}
         params, opt_state, gnorm = adamw.update(
             opt_cfg, unflatten(dict(zip(flat, grads))), opt_state, params)

@@ -534,3 +534,72 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
     per = 2 if remat else 1
     assert ops.launches()["flash_attention"] == 2 * n_attn * per
     assert ops.launches()["ssm_scan"] == 2 * n_ssm * per
+
+
+def test_fake_cuda_tensors_book_the_kernels_and_launch_nothing(cuda, monkeypatch):
+    """The dry run's route on a card: fake CUDA tensors (indexing works
+    where CUDA does) go to the fake route, which books each kernel's work
+    to the counter, builds nothing, launches nothing, allocates nothing."""
+    from repro_torch.kernels import _build
+    from repro_torch.roofline.analysis import StepCounter
+
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail(f"built {name}"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    c = StepCounter(kernels=True)
+    B, S, H, KV, D = 2, 128, 8, 2, 64
+    with c:
+        q = torch.empty((B, S, H, D), dtype=torch.bfloat16, device=cuda)
+        k = torch.empty((B, S, KV, D), dtype=torch.bfloat16, device=cuda)
+        valid = torch.ones((B, S), dtype=torch.bool, device=cuda)
+        c.start(())
+        o = ops.flash_attention(q, k, k)
+        od = ops.decode_attention(q[:, :1], k, k, valid)
+    assert o.shape == q.shape and od.shape == (B, 1, H, D)
+    assert {n: v["calls"] for n, v in c.kernels.items()} == {
+        "flash_attention": 1, "decode_attention": 1}
+    assert c.kernels["flash_attention"]["flops"] == fa_mod.work(B, S, H, KV, D, None, 2)[0]
+    assert ops.launches() == {n: 0 for n in ops.launches()}
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_expert_parallel_moe_on_a_one_rank_nccl_group_matches_moe_forward(cuda):
+    """``moe_forward_shard_map`` on a one-rank NCCL group's (1, 1) mesh
+    against ``moe_forward`` (the deepseek-v2 smoke layer in bf16): one rank
+    routes every token at the same capacity, so both agree to rounding.  In
+    a process of its own: no other default group may exist there."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    script = r"""
+import socket, torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import moe
+from repro_torch.models.common import init_params
+cfg = get_smoke_config("deepseek-v2-236b")
+p = init_params(moe.moe_specs(cfg), 0, torch.device("cuda"), torch.bfloat16, stacked=())
+x = torch.randn((4, 32, cfg.d_model), device="cuda").to(torch.bfloat16)
+with socket.socket() as s:
+    s.bind(("localhost", 0)); port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+try:
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    with torch.no_grad():
+        want, aux_want = moe.moe_forward(p, cfg, x)
+        got, aux = moe.moe_forward_shard_map(p, cfg, x, mesh)
+    print((got.float() - want.float()).abs().max().item(), abs(float(aux) - float(aux_want)))
+finally:
+    dist.destroy_process_group()
+"""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, cwd=root, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    err, aux_err = map(float, res.stdout.split())
+    assert err <= TOL[torch.bfloat16] and aux_err <= 1e-6

@@ -66,7 +66,7 @@ def test_mla_specs_have_the_reference_tree_and_shapes(smoke, q_lora_rank):
     f = ParamFactory(None, jnp.bfloat16, abstract=True)
     jattn.mla_init(f, jcfg)
     want = {k: tuple(v.shape) for k, v in f.params.items()}
-    assert {k: s for k, (s, _, _) in tattn.mla_specs(cfg).items()} == want
+    assert {k: s for k, (s, *_) in tattn.mla_specs(cfg).items()} == want
     assert ("w_dq" in want) == bool(q_lora_rank)
 
 

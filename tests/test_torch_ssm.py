@@ -251,8 +251,9 @@ def test_ssm_specs_match_jax_init():
     jssm.ssm_init(f, jcfg)
     specs = tssm.ssm_specs(cfg)
     assert set(specs) == set(f.params)
-    for k, (shape, init, _) in specs.items():
+    for k, (shape, init, _, part) in specs.items():
         assert tuple(shape) == f.params[k].shape, k
+        assert part == tuple(f.specs[k]), k
         if init in ("ones", "zeros"):
             assert np.all(np.asarray(f.params[k]) == (1.0 if init == "ones" else 0.0)), k
 
