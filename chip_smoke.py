@@ -85,7 +85,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    decode_32k with the expert-parallel MoE, mamba2-370m long_500k, each
    step's three terms and its dominant one; then [ep]: deepseek-v2-236b's
    MoE layer at full width through ``moe_forward_shard_map`` on a one-rank
-   NCCL group against ``moe_forward`` on the same inputs.
+   NCCL group against ``moe_forward`` on the same inputs;
+8. plan (host only, no kernel of its own): MIG-Serving on phase 5's
+   measurements.  The seven architectures phase 5 serves on one card
+   (qwen3-8b, mamba2-370m, zamba2-1.2b, granite-20b, phi4-mini-3.8b,
+   internvl2-1b, musicgen-large) get one H100 MIG profile
+   (``h100_arch_profiles`` in a ``MeasuredProfile`` fed each model's first
+   phase-5 observation at size 7); a day workload at a 100 ms SLO asks each
+   for 1-6 times its whole-card rate (drawn from --seed), a night one for
+   0.2-0.45 of the day's.  ``TwoPhaseOptimizer`` on ``h100_mig_rules()`` at
+   the reference's defaults places each; the whole card ("H100 as-is"), the
+   4-2-1 static mix, greedy, two-phase and the lower bound are printed with
+   the host seconds and the GA history, and the phase fails unless the plan
+   is valid, every partition legal, lower bound <= two-phase <= greedy and
+   two-phase <= as-is.  The controller then deploys the day plan on a
+   simulated cluster and moves it to the night plan: action counts,
+   ``parallel_makespan``, and a failure unless the final content is the
+   night plan and every service kept min(day, night) throughout.  Then one
+   8-card node (``h100_node_rules()``, groups of 1, 2, 4 or 8 cards):
+   deepseek-v2-236b's whole model needs all 8 (min_size 56) and gets a
+   deployment of whole nodes; llama3-405b and deepseek-v3-671b fit no node.
+   The phase fails above 60 s of host time.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -103,6 +123,7 @@ import socket
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1132,6 +1153,138 @@ def ep_check(torch, get_config, seed, batch: int = 8, seq: int = 128) -> None:
     del p, x, got, want
 
 
+
+# -- phase 8: the MIG-Serving plan on phase 5's measurements -------------------------
+
+# the architectures phase 5 serves that fit one card, placed onto H100 MIG instances
+PLAN_ARCHS = ("qwen3-8b", "mamba2-370m", "zamba2-1.2b", "granite-20b", "phi4-mini-3.8b",
+              "internvl2-1b", "musicgen-large")
+# the ones no card holds, placed onto groups of cards of one 8-card node
+NODE_ARCHS = ("deepseek-v2-236b", "llama3-405b", "deepseek-v3-671b")
+# the latency SLO of every service (the reference quickstart's), ms
+PLAN_SLO_MS = 100.0
+# host seconds phase 8 may take
+PLAN_BUDGET_S = 60.0
+
+
+def recording_profiles(MeasuredProfile, h100_arch_profiles, seen: list):
+    """Phase 5's factory of a MeasuredProfile round one architecture's H100
+    profile; every observation a serve run feeds it is also appended to
+    ``seen`` as (arch, size, batch, measured req/s), for phase 8."""
+
+    class Recording(MeasuredProfile):
+        def observe(self, model, size, batch, measured_tput):
+            seen.append((model, size, batch, measured_tput))
+            super().observe(model, size, batch, measured_tput)
+
+    return lambda arch: Recording(h100_arch_profiles([arch]))
+
+
+def plan_mig(core, h100_arch_profiles, observations, seed) -> None:
+    """Place the one-card architectures onto H100 MIG instances with the
+    two-phase optimizer on phase 5's measured profile, check the plan, then
+    move a cluster from it to a night workload with the controller."""
+    t_phase = time.monotonic()
+    prof = core.MeasuredProfile(h100_arch_profiles(list(PLAN_ARCHS)))
+    # one observation per model, its first run's (granite-20b's paged one):
+    # a second would pull the EWMA correction once more
+    first = {}
+    for o in observations:
+        first.setdefault(o[0], o)
+    missing = [a for a in PLAN_ARCHS if a not in first]
+    if missing:
+        fail(f"plan: phase 5 measured none of {missing}")
+    for arch in PLAN_ARCHS:
+        prof.observe(*first[arch])
+    for arch in PLAN_ARCHS:
+        phase("plan", config=arch, classify=prof.classify(arch, PLAN_SLO_MS),
+              min_size=prof.min_size(arch), correction=f"{prof.correction(arch, 7):.4f}",
+              rps_by_size=json.dumps({s: round(prof.throughput(arch, s, PLAN_SLO_MS), 3)
+                                      for s in prof.sizes()}))
+    rng = np.random.default_rng([seed, *b"plan"])
+    day_rates = {a: prof.throughput(a, 7, PLAN_SLO_MS) * float(rng.uniform(1.0, 6.0))
+                 for a in PLAN_ARCHS}
+    night_rates = {a: r * float(rng.uniform(0.2, 0.45)) for a, r in day_rates.items()}
+    day, night = (core.Workload.make({a: core.SLO(r, PLAN_SLO_MS) for a, r in rates.items()})
+                  for rates in (day_rates, night_rates))
+    rules = core.h100_mig_rules()
+    reps = {}
+    for name, wl in (("day", day), ("night", night)):
+        rep = core.TwoPhaseOptimizer(rules, prof, wl, seed=seed).run()
+        reps[name] = rep
+        best, fast = rep.best_deployment, rep.fast_deployment
+        as_is = core.baseline_homogeneous(rules, prof, wl, 7)
+        mix = core.baseline_static_mix(rules, prof, wl)
+        lb = core.lower_bound_gpus(rules, prof, wl)
+        phase("plan", workload=name, rules="h100_mig", slo_ms=PLAN_SLO_MS,
+              rates_rps=json.dumps({a: round(s.slo.throughput, 3) for a, s in
+                                    zip(wl.names, wl.services)}),
+              as_is=as_is, static_mix=mix if mix >= 0 else "infeasible",
+              greedy=fast.num_gpus, two_phase=best.num_gpus, lower_bound=lb,
+              fast_s=f"{rep.fast_seconds:.3f}", total_s=f"{rep.total_seconds:.3f}",
+              ga_history=json.dumps(rep.ga_history),
+              partitions=json.dumps(sorted(Counter(c.partition for c in best.configs).items())))
+        if not best.is_valid(wl):
+            fail(f"plan {name}: the two-phase deployment misses an SLO")
+        bad = [c.partition for c in best.configs if not rules.is_legal_partition(c.partition)]
+        if bad:
+            fail(f"plan {name}: illegal partitions {bad}")
+        if not lb <= best.num_gpus <= fast.num_gpus:
+            fail(f"plan {name}: lower bound {lb} <= two-phase {best.num_gpus} <= greedy "
+                 f"{fast.num_gpus} does not hold")
+        if best.num_gpus > as_is:
+            fail(f"plan {name}: two-phase {best.num_gpus} cards > {as_is} whole cards")
+    # the controller moves a cluster from the day plan to the night plan
+    ctrl = core.Controller(rules, prof)
+    cluster = core.SimulatedCluster(rules, reps["day"].best_deployment.num_gpus)
+    ctrl.deploy_fresh(cluster, reps["day"].best_deployment)
+    n0 = len(cluster.trace)
+    tr = ctrl.transition(cluster, reps["night"].best_deployment)
+    served = Counter((r.size, r.service) for g in cluster.gpus.values()
+                     for r in g.instances.values() if r.service)
+    want = Counter((a.size, a.service) for c in reps["night"].best_deployment.configs
+                   for a in c.assignments if a.service)
+    floor = min(tp.get(a, 0.0) / min(day_rates[a], night_rates[a])
+                for _, tp in cluster.trace[n0:] for a in PLAN_ARCHS)
+    phase("plan", transition="day->night", actions=len(tr.actions),
+          counts=json.dumps(tr.action_counts), serial_s=f"{tr.serial_seconds:.1f}",
+          parallel_makespan_s=f"{tr.parallel_seconds:.1f}", peak_gpus=tr.peak_gpus_busy,
+          final_gpus=tr.final_gpus_busy, min_served_share=f"{floor:.4f}")
+    if served != want:
+        fail("plan: the cluster's content after the transition is not the night plan")
+    if floor < 1.0 - 1e-9:  # §6: each service keeps min(day, night) throughout
+        fail(f"plan: a service fell to {floor:.4f} of min(day, night) during the transition")
+    phase("plan", mig_seconds=f"{time.monotonic() - t_phase:.2f}")
+
+
+def plan_node(core, h100_node_profiles, get_config, seed) -> None:
+    """The models no card holds, on groups of 1, 2, 4 or 8 cards of a node:
+    deepseek-v2-236b needs all eight, the two larger ones fit no node."""
+    prof = h100_node_profiles(list(NODE_ARCHS))
+    rules = core.h100_node_rules()
+    for arch in NODE_ARCHS:
+        gb = get_config(arch).param_count() * 2 / 1e9
+        sizes = [s for s in prof.sizes() if prof.feasible(arch, s)]
+        phase("plan", node="8xH100", config=arch, weights_gb=f"{gb:.1f}",
+              min_size=sizes[0] if sizes else "infeasible on one node")
+    if prof.min_size("deepseek-v2-236b") != 56:
+        fail(f"plan: deepseek-v2-236b min_size {prof.min_size('deepseek-v2-236b')}, not 56")
+    for arch in NODE_ARCHS[1:]:
+        if any(prof.feasible(arch, s) for s in prof.sizes()):
+            fail(f"plan: {arch} reported feasible on one node")
+    rng = np.random.default_rng([seed, *b"node"])
+    rate = prof.throughput("deepseek-v2-236b", 56, PLAN_SLO_MS) * float(rng.uniform(1.0, 6.0))
+    wl = core.Workload.make({"deepseek-v2-236b": core.SLO(rate, PLAN_SLO_MS)})
+    rep = core.TwoPhaseOptimizer(rules, prof, wl, seed=seed).run()
+    best = rep.best_deployment
+    phase("plan", node="8xH100", config="deepseek-v2-236b", rate_rps=f"{rate:.3f}",
+          nodes=best.num_gpus, lower_bound=core.lower_bound_gpus(rules, prof, wl),
+          partitions=json.dumps([list(c.partition) for c in best.configs]),
+          batch=best.configs[0].assignments[0].batch, total_s=f"{rep.total_seconds:.3f}")
+    if not best.is_valid(wl) or any(c.partition != (56,) for c in best.configs):
+        fail("plan: deepseek-v2-236b's node deployment is not whole nodes meeting its SLO")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1144,7 +1297,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
     try:
         from repro_torch.configs import get_config, get_smoke_config, long_context_variant
-        from repro_torch.core.arch_bridge import h100_arch_profiles
+        from repro_torch import core
+        from repro_torch.core.arch_bridge import h100_arch_profiles, h100_node_profiles
         from repro_torch.core.online_profiles import MeasuredProfile
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import decode_attention as dec_mod
@@ -1307,8 +1461,9 @@ def main() -> None:
                  long_context_variant(smoke["qwen3-8b"], window=8), True, args.seed)
 
     # 5. main paths at full width, each followed by its profile (6) -----------------
+    observed = []  # every run's §8.3 observation, for phase 8's plan
     serve = (torch, ops, Engine, Request, run_closed_loop,
-             lambda arch: MeasuredProfile(h100_arch_profiles([arch])))
+             recording_profiles(MeasuredProfile, h100_arch_profiles, observed))
     counts = []
     model, params = init_main(torch, Model, flatten, qwen, args.seed)
     engine, c, rng = serve_main(
@@ -1428,6 +1583,15 @@ def main() -> None:
     dryrun_card(busy, train_peak_gb)
     dryrun_node()
     ep_check(torch, get_config, args.seed)
+
+    # 8. the MIG-Serving plan on phase 5's measurements (host only) -----------------
+    t0 = time.monotonic()
+    plan_mig(core, h100_arch_profiles, observed, args.seed)
+    plan_node(core, h100_node_profiles, get_config, args.seed)
+    plan_s = time.monotonic() - t0
+    phase("plan", host_seconds=f"{plan_s:.2f}", budget_s=PLAN_BUDGET_S)
+    if plan_s > PLAN_BUDGET_S:
+        fail(f"plan: {plan_s:.1f} s of host time, over {PLAN_BUDGET_S} s")
 
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)

@@ -8,6 +8,8 @@ pages, ``step`` runs ragged paged decode), :func:`repro_torch.serving.run_closed
 and ``python -m repro_torch.launch.serve``.  The kernels on those paths
 are hand-written CUDA C++ for ``sm_90a`` (:mod:`repro_torch.kernels`);
 every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
-:mod:`repro_torch.core` holds the scheduler's performance profiles over
-H100 MIG instances and their §8.3 online correction.
+:mod:`repro_torch.core` holds MIG-Serving itself: the rule-sets, the
+performance profiles over H100 MIG instances with their §8.3 online
+correction, the two-phase optimizer and the controller that places the
+served models onto H100 MIG instances (or groups of cards of a node).
 """

@@ -1,20 +1,20 @@
 """Performance profiles: throughput/latency of a service on each instance size.
 
-The port's copy of the JAX package's ``core/profiles.py`` (numpy-free
-here: the classes it copies need only ``math``).  MIG-Serving's optimizer
-(§5) consumes only a profile: for service *m* on an instance of size *s*,
-what throughput can it sustain with per-request latency below the SLO?
+The port's copy of the JAX package's ``core/profiles.py``.  MIG-Serving's
+optimizer (§5) consumes only a profile: for service *m* on an instance of
+size *s*, what throughput can it sustain with per-request latency below
+the SLO?
 
   * :class:`PerfProfile` — the interface, with the paper's §7 rule
     (:meth:`PerfProfile.throughput`: the largest batch whose latency meets
     the SLO) and §2.2 classification;
+  * :class:`SyntheticPaperProfiles` — the seeded generator of the paper's
+    49-model study (sub-, super- and linear scaling classes), which the
+    paper-faithful experiments run on;
   * :class:`RooflineProfiles` — profiles derived from an analytic decode
     roofline over the architectures' configs, on the instances of a
     ``chip`` (by default an H100 cut into MIG instances,
     :class:`repro_torch.roofline.hw.H100MigChip`).
-
-The reference's ``SyntheticPaperProfiles`` (the seeded 49-model study)
-comes with the optimizer's port.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ from __future__ import annotations
 import abc
 import dataclasses
 import math
-from typing import List, Protocol, Sequence, Tuple
+from typing import Dict, List, Protocol, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.roofline.hw import H100MigChip
 
@@ -85,6 +87,75 @@ class PerfProfile(abc.ABC):
         if ratio > hi:
             return "super-linear"
         return "linear"
+
+
+# ---------------------------------------------------------------------------
+# Synthetic paper-like profiles
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _SyntheticModel:
+    name: str
+    unit_tput: float  # req/s per slice-unit at saturation on min instance
+    alpha: float  # throughput ~ size**alpha  (alpha<1 sub-linear, >1 super)
+    overhead_ms: float  # fixed per-batch launch overhead
+    min_size: int  # smallest instance the model fits on
+
+
+class SyntheticPaperProfiles(PerfProfile):
+    """Seeded generator mirroring the paper's 49-model study (§2.2, App. B).
+
+    Scaling classes are drawn so that non-linear models are prevalent
+    (the paper's Figure 4): roughly 45% sub-linear, 30% linear, 25%
+    super-linear at moderate batch sizes.  The draws are the reference's,
+    in its order, from ``np.random.default_rng(seed)``: the same
+    ``(n_models, seed)`` gives the same models in both packages.
+    """
+
+    def __init__(
+        self,
+        n_models: int = 24,
+        seed: int = 0,
+        sizes: Sequence[int] = (1, 2, 3, 4, 7),
+    ):
+        rng = np.random.default_rng(seed)
+        self._sizes = tuple(sizes)
+        full = max(sizes)
+        self._models: Dict[str, _SyntheticModel] = {}
+        classes = rng.choice(
+            ["sub", "lin", "sup"], size=n_models, p=[0.45, 0.30, 0.25]
+        )
+        for i in range(n_models):
+            cls = classes[i]
+            if cls == "sub":
+                alpha = float(rng.uniform(0.55, 0.85))
+            elif cls == "lin":
+                alpha = float(rng.uniform(0.95, 1.05))
+            else:
+                alpha = float(rng.uniform(1.15, 1.45))
+            unit = float(rng.uniform(40.0, 400.0))
+            overhead = float(rng.uniform(1.0, 6.0))
+            # ~20% of models are "large": need a 2- or 3-slice instance
+            if rng.random() < 0.2:
+                min_size = int(rng.choice([s for s in sizes if 1 < s < full]))
+            else:
+                min_size = min(sizes)
+            name = f"model{i:02d}-{cls}"
+            self._models[name] = _SyntheticModel(name, unit, alpha, overhead, min_size)
+
+    def services(self) -> List[str]:
+        return list(self._models)
+
+    def sizes(self) -> Sequence[int]:
+        return self._sizes
+
+    def latency_ms(self, model: str, size: int, batch: int) -> float:
+        m = self._models[model]
+        if size < m.min_size:
+            return math.inf
+        rate = m.unit_tput * (size ** m.alpha)  # req/s at saturation
+        return m.overhead_ms + batch * 1000.0 / rate
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,9 @@ def test_port_imports_in_a_process_without_jax():
         "import repro_torch, repro_torch.bridge, repro_torch.configs, repro_torch.models\n"
         "import repro_torch.serving, repro_torch.kernels.ops, repro_torch.launch.serve\n"
         "import repro_torch.training, repro_torch.launch.train\n"
+        "import repro_torch.core, repro_torch.core.h100_slice, repro_torch.core.arch_bridge\n"
+        "from repro_torch.core import (cluster, controller, deployment, exact, ga, greedy,\n"
+        "    lower_bound, mcts, mig, online_profiles, optimizer, profiles, rms, zoo)\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS, 'a kernel was built at import'\n"
         "print('ok')\n"
