@@ -91,21 +91,44 @@ Phases, each printing its own lines; any failure exits non-zero:
    (qwen3-8b, mamba2-370m, zamba2-1.2b, granite-20b, phi4-mini-3.8b,
    internvl2-1b, musicgen-large) get one H100 MIG profile
    (``h100_arch_profiles`` in a ``MeasuredProfile`` fed each model's first
-   phase-5 observation at size 7); a day workload at a 100 ms SLO asks each
+   phase-5 observation as the same measured/predicted ratio at every size
+   where the model fits, so the whole card and the MIG sizes share one
+   correction); a day workload at a 100 ms SLO asks each
    for 1-6 times its whole-card rate (drawn from --seed), a night one for
-   0.2-0.45 of the day's.  ``TwoPhaseOptimizer`` on ``h100_mig_rules()`` at
+   0.2-0.45 of the day's.  ``TwoPhaseOptimizer`` on ``h100_mig_rules()``
+   (the A100's placements within the card's 8 memory slices) at
    the reference's defaults places each; the whole card ("H100 as-is"), the
    4-2-1 static mix, greedy, two-phase and the lower bound are printed with
    the host seconds and the GA history, and the phase fails unless the plan
    is valid, every partition legal, lower bound <= two-phase <= greedy and
-   two-phase <= as-is.  The controller then deploys the day plan on a
-   simulated cluster and moves it to the night plan: action counts,
-   ``parallel_makespan``, and a failure unless the final content is the
-   night plan and every service kept min(day, night) throughout.  Then one
-   8-card node (``h100_node_rules()``, groups of 1, 2, 4 or 8 cards):
-   deepseek-v2-236b's whole model needs all 8 (min_size 56) and gets a
-   deployment of whole nodes; llama3-405b and deepseek-v3-671b fit no node.
-   The phase fails above 60 s of host time.
+   two-phase <= as-is.  Beside it, ungated, the same counts for a profile
+   corrected at size 7 only and for the uncorrected roofline (each at the
+   same multiples of its own size-7 rates).  The controller then deploys
+   the day plan on a simulated cluster and moves it to the night plan:
+   action counts, ``parallel_makespan``, and a failure unless the final
+   content is the night plan and every service kept min(day, night)
+   throughout.  Then one 8-card node (``h100_node_rules()``, groups of 1,
+   2, 4 or 8 cards): deepseek-v2-236b's whole model needs all 8 (min_size
+   56) and gets a deployment of whole nodes; llama3-405b and
+   deepseek-v3-671b fit no node.
+   The phase fails above 60 s of host time;
+9. control (host only): phase 8's day plan through the paper's §6-7
+   serving system.  [route]: a ``WeightedRouter`` per service over its
+   instances, weighted by the corrected profile's throughput at each
+   instance's size and batch, 20,000 picks, each instance's share within
+   n / 20000 + 1e-3 of its weight share (the reference's bound);
+   [control]: for the ``none``, ``gpu_loss`` and ``instance_crash`` fault
+   profiles, ``build_control_plane`` reconciles the plan onto a fresh
+   ``SimulatedCluster``, fires the injector's device faults and reconciles
+   again, with ``Observability.on()`` recording spans and metrics in sim
+   time (stats, actions, makespan, the metrics snapshot and the span count
+   printed); it fails unless every final diff is converged, every
+   partition is legal under ``h100_mig_rules()`` and the spans are well
+   formed; [token]: the token-level serving model of qwen3-8b's whole card
+   on the profile phase 5's measurement corrects (``ewma=1.0``), at phase
+   5's geometry (batch 8, pages of 16, max_len 2048, 16 requests of the
+   mean prompt length and 64 new tokens), its requests/s beside the
+   engine's (recorded, not gated).  The phase fails above 30 s of host time.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -918,6 +941,13 @@ def init_main(torch, Model, flatten, cfg, seed, full=None):
     return model, params
 
 
+def phase5_traffic(seed, name):
+    """Phase 5's traffic generator for config ``name`` and the prompt
+    lengths it draws first (its other draws are the prompts' tokens)."""
+    rng = np.random.default_rng([seed, *name.encode()])
+    return rng, rng.integers(128, 1025, size=REQUESTS)
+
+
 def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model, params,
                seed, backend, expect_backend, expect_counts):
     """Serve 16 requests of 128-1024 prompt tokens at full width on
@@ -929,7 +959,7 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
     move when other phases draw more or fewer numbers, and two backends of
     one model see the same requests.  Returns (engine, counts, rng)."""
     cfg = model.cfg
-    rng = np.random.default_rng([seed, *cfg.name.encode()])
+    rng, plens = phase5_traffic(seed, cfg.name)
 
     # warm-up on its own engine (cuBLAS handles, allocator), not counted
     warm = Engine(model, params, batch=2, max_len=256, kv_backend=backend)
@@ -941,7 +971,6 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
     if engine.kv_backend != expect_backend:
         fail(f"{cfg.name}: {backend} backend gave {engine.kv_backend!r}, expected "
              f"{expect_backend!r}")
-    plens = rng.integers(128, 1025, size=REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=int(L)).astype(np.int32),
                     max_new_tokens=NEW_TOKENS) for i, L in enumerate(plens)]
     probe = {"prefill": 0, "prefill_s": 0.0, "decode_s": 0.0,
@@ -1180,12 +1209,43 @@ def recording_profiles(MeasuredProfile, h100_arch_profiles, seen: list):
     return lambda arch: Recording(h100_arch_profiles([arch]))
 
 
-def plan_mig(core, h100_arch_profiles, observations, seed) -> None:
+def observe_every_size(prof, arch, size, batch, measured_rps) -> None:
+    """Feed ``prof`` one phase-5 observation of ``arch`` (``measured_rps`` on
+    a whole card, ``size`` 7, at ``batch``) as the same measured/predicted
+    ratio at every size where the model fits.  ``MeasuredProfile`` corrects
+    each (model, size) pair on its own, and MIG mode cannot be switched on
+    to measure sizes 1-4; a feed at size 7 alone would price the whole card,
+    and with it the as-is baseline, at the correction while the MIG sizes
+    kept the roofline's rates."""
+    ratio = measured_rps / prof.predicted(arch, size, batch)
+    for s in prof.sizes():
+        b = next((b for b in (batch, 1) if prof.predicted(arch, s, b) > 0), None)
+        if b is not None:
+            prof.observe(arch, s, b, ratio * prof.predicted(arch, s, b))
+
+
+def plan_cards(core, rules, prof, wl, seed):
+    """The two-phase plan of ``wl`` and its yardsticks: (report, as-is
+    whole cards, 4-2-1 static mix or -1, lower bound)."""
+    rep = core.TwoPhaseOptimizer(rules, prof, wl, seed=seed).run()
+    return (rep, core.baseline_homogeneous(rules, prof, wl, WHOLE_CARD),
+            core.baseline_static_mix(rules, prof, wl), core.lower_bound_gpus(rules, prof, wl))
+
+
+def plan_mig(core, h100_arch_profiles, observations, seed) -> dict:
     """Place the one-card architectures onto H100 MIG instances with the
     two-phase optimizer on phase 5's measured profile, check the plan, then
-    move a cluster from it to a night workload with the controller."""
+    move a cluster from it to a night workload with the controller.
+
+    The headline profile gives every size of a model that model's measured
+    size-7 correction (``observe_every_size``); the plans on a profile
+    corrected at size 7 only, and on the uncorrected roofline, are printed
+    beside it for comparison (each at 1-6 times its own size-7 rates).
+    Returns the headline profile, the day rates and the day plan."""
     t_phase = time.monotonic()
-    prof = core.MeasuredProfile(h100_arch_profiles(list(PLAN_ARCHS)))
+    base = lambda: h100_arch_profiles(list(PLAN_ARCHS))  # noqa: E731
+    prof = core.MeasuredProfile(base())
+    only7 = core.MeasuredProfile(base())
     # one observation per model, its first run's (granite-20b's paged one):
     # a second would pull the EWMA correction once more
     first = {}
@@ -1195,28 +1255,34 @@ def plan_mig(core, h100_arch_profiles, observations, seed) -> None:
     if missing:
         fail(f"plan: phase 5 measured none of {missing}")
     for arch in PLAN_ARCHS:
-        prof.observe(*first[arch])
+        observe_every_size(prof, *first[arch])
+        only7.observe(*first[arch])
     for arch in PLAN_ARCHS:
         phase("plan", config=arch, classify=prof.classify(arch, PLAN_SLO_MS),
-              min_size=prof.min_size(arch), correction=f"{prof.correction(arch, 7):.4f}",
+              min_size=prof.min_size(arch),
+              correction=json.dumps({s: round(prof.correction(arch, s), 4)
+                                     for s in prof.sizes()}),
               rps_by_size=json.dumps({s: round(prof.throughput(arch, s, PLAN_SLO_MS), 3)
                                       for s in prof.sizes()}))
     rng = np.random.default_rng([seed, *b"plan"])
-    day_rates = {a: prof.throughput(a, 7, PLAN_SLO_MS) * float(rng.uniform(1.0, 6.0))
-                 for a in PLAN_ARCHS}
-    night_rates = {a: r * float(rng.uniform(0.2, 0.45)) for a, r in day_rates.items()}
-    day, night = (core.Workload.make({a: core.SLO(r, PLAN_SLO_MS) for a, r in rates.items()})
-                  for rates in (day_rates, night_rates))
+    day_mult = {a: float(rng.uniform(1.0, 6.0)) for a in PLAN_ARCHS}
+    night_mult = {a: float(rng.uniform(0.2, 0.45)) for a in PLAN_ARCHS}
+
+    def workloads(p):
+        day = {a: p.throughput(a, WHOLE_CARD, PLAN_SLO_MS) * day_mult[a] for a in PLAN_ARCHS}
+        night = {a: r * night_mult[a] for a, r in day.items()}
+        return [(name, rates, core.Workload.make(
+                    {a: core.SLO(r, PLAN_SLO_MS) for a, r in rates.items()}))
+                for name, rates in (("day", day), ("night", night))]
+
     rules = core.h100_mig_rules()
-    reps = {}
-    for name, wl in (("day", day), ("night", night)):
-        rep = core.TwoPhaseOptimizer(rules, prof, wl, seed=seed).run()
-        reps[name] = rep
+    reps, rates = {}, {}
+    for name, r, wl in workloads(prof):
+        rep, as_is, mix, lb = plan_cards(core, rules, prof, wl, seed)
+        reps[name], rates[name] = rep, r
         best, fast = rep.best_deployment, rep.fast_deployment
-        as_is = core.baseline_homogeneous(rules, prof, wl, 7)
-        mix = core.baseline_static_mix(rules, prof, wl)
-        lb = core.lower_bound_gpus(rules, prof, wl)
-        phase("plan", workload=name, rules="h100_mig", slo_ms=PLAN_SLO_MS,
+        phase("plan", workload=name, rules="h100_mig", correction="every size",
+              slo_ms=PLAN_SLO_MS,
               rates_rps=json.dumps({a: round(s.slo.throughput, 3) for a, s in
                                     zip(wl.names, wl.services)}),
               as_is=as_is, static_mix=mix if mix >= 0 else "infeasible",
@@ -1234,6 +1300,18 @@ def plan_mig(core, h100_arch_profiles, observations, seed) -> None:
                  f"{fast.num_gpus} does not hold")
         if best.num_gpus > as_is:
             fail(f"plan {name}: two-phase {best.num_gpus} cards > {as_is} whole cards")
+    # for comparison: the same multipliers on a profile corrected at size 7
+    # only (the whole card slower than the roofline, its MIG sizes not) and
+    # on the uncorrected roofline
+    for label, p in (("size 7 only", only7), ("none", base())):
+        for name, _, wl in workloads(p):
+            rep, as_is, mix, lb = plan_cards(core, rules, p, wl, seed)
+            phase("plan", compare=json.dumps(label), plan=name, as_is=as_is,
+                  static_mix=mix if mix >= 0 else "infeasible",
+                  greedy=rep.fast_deployment.num_gpus, two_phase=rep.best_deployment.num_gpus,
+                  lower_bound=lb, partitions=json.dumps(sorted(Counter(
+                      c.partition for c in rep.best_deployment.configs).items())))
+    day_rates, night_rates = rates["day"], rates["night"]
     # the controller moves a cluster from the day plan to the night plan
     ctrl = core.Controller(rules, prof)
     cluster = core.SimulatedCluster(rules, reps["day"].best_deployment.num_gpus)
@@ -1255,6 +1333,7 @@ def plan_mig(core, h100_arch_profiles, observations, seed) -> None:
     if floor < 1.0 - 1e-9:  # §6: each service keeps min(day, night) throughout
         fail(f"plan: a service fell to {floor:.4f} of min(day, night) during the transition")
     phase("plan", mig_seconds=f"{time.monotonic() - t_phase:.2f}")
+    return {"profile": prof, "day_rates": day_rates, "deployment": reps["day"].best_deployment}
 
 
 def plan_node(core, h100_node_profiles, get_config, seed) -> None:
@@ -1285,6 +1364,190 @@ def plan_node(core, h100_node_profiles, get_config, seed) -> None:
         fail("plan: deepseek-v2-236b's node deployment is not whole nodes meeting its SLO")
 
 
+# -- phase 9: the control plane on phase 8's plan (host only) ------------------------
+
+# picks each service's router makes over its instances
+ROUTE_PICKS = 20_000
+# the fault profiles phase 9 reconciles the day plan under
+CONTROL_FAULTS = ("none", "gpu_loss", "instance_crash")
+# sim seconds the fault injector spreads its device faults over (an hour)
+CONTROL_DURATION_S = 3600.0
+# host seconds phase 9 may take
+CONTROL_BUDGET_S = 30.0
+
+
+def route_plan(router_mod, prof, deployment) -> list:
+    """One weighted router per service of ``deployment``, each instance
+    weighted by ``prof``'s throughput at its size and batch; returns, per
+    service, (service, weights, picks per instance) after ROUTE_PICKS picks."""
+    members = {}
+    for c in deployment.configs:
+        for a in c.assignments:
+            if a.service:
+                members.setdefault(a.service, []).append(a)
+    out = []
+    for svc in sorted(members):
+        handles = [router_mod.InstanceHandle(
+                       instance_id=i, size=a.size,
+                       throughput=a.batch * 1000.0 / prof.latency_ms(svc, a.size, a.batch))
+                   for i, a in enumerate(members[svc])]
+        router = router_mod.WeightedRouter(handles)
+        for _ in range(ROUTE_PICKS):
+            router.pick()
+        counts = router.dispatch_counts()
+        out.append((svc, [h.throughput for h in handles], [counts[h.instance_id]
+                                                             for h in handles]))
+    return out
+
+
+def fire_device_fault(injector, cluster, fault):
+    """Fire one of the injector's scheduled device faults on ``cluster``, its
+    target drawn by the injector over sorted candidates as the reference's
+    simulator draws it: a GPU failure on a busy card, a drain of a machine
+    with a busy card, an instance crash on a serving instance (its process
+    restarts in place: the cluster keeps the instance).  Returns
+    (target, instances killed), or None when nothing is busy."""
+    busy = [gid for gid, g in cluster.gpus.items() if g.busy() and gid not in cluster.failed]
+    if fault.kind == "gpu_failure":
+        gid = injector.pick_gpu(busy)
+        return None if gid is None else (gid, len(cluster.fail_gpu(gid)))
+    if fault.kind == "node_drain":
+        machine = injector.pick_machine(sorted({cluster.gpus[g].machine for g in busy}))
+        if machine is None:
+            return None
+        cluster.drain_machine(machine)
+        return machine, 0
+    if fault.kind == "instance_crash":
+        uid = injector.pick_instance(sorted(cluster.busy_instances()))
+        return None if uid is None else (uid, 0)
+    raise ValueError(fault.kind)
+
+
+def control_run(core, controlplane, obs_mod, rules, prof, deployment, required, fault,
+                seed) -> dict:
+    """Reconcile ``deployment`` onto a fresh cluster under the ``fault``
+    profile, fire the injector's device faults, and reconcile again after
+    the profile's detection delay, recording spans and metrics in sim time.
+    Package-agnostic (``core``, ``controlplane`` and ``obs_mod`` are either
+    package's), so the tests run it on both."""
+    obs = obs_mod.Observability.on()
+    ctrl = core.Controller(rules, prof)
+    plane = controlplane.build_control_plane(ctrl, fault, seed, CONTROL_DURATION_S)
+    cluster = core.SimulatedCluster(rules, deployment.num_gpus)
+    desired = controlplane.DesiredState(deployment, dict(required))
+    passes, fired = [], []
+
+    def reconcile(label, t0):
+        obs.tracer.begin("reconcile", label, t0)
+        rep, stats = plane.reconciler.reconcile(cluster, desired)
+        t1 = t0 + rep.parallel_seconds
+        for a in rep.actions:
+            obs.metrics.counter(f"actions.{a.kind}").inc()
+        obs.metrics.counter("reconcile.iterations").inc(stats.iterations)
+        obs.metrics.counter("reconcile.retried").inc(stats.retried)
+        obs.metrics.gauge("gpus.busy").set(cluster.gpus_in_use())
+        obs.tracer.end("reconcile", t1, args={"actions": len(rep.actions),
+                                              "converged": stats.converged})
+        obs.metrics.sample(t1)
+        passes.append({"pass": label, "stats": stats.to_dict(), "actions": len(rep.actions),
+                       "counts": rep.action_counts, "makespan_s": rep.parallel_seconds,
+                       "serial_s": rep.serial_seconds})
+        return t1
+
+    t = reconcile("deploy", 0.0)
+    for f in plane.injector.device_faults() if plane.injector is not None else ():
+        t = max(t, f.time_s)
+        hit = fire_device_fault(plane.injector, cluster, f)
+        obs.tracer.instant("faults", f.kind, t, args={"target": hit and hit[0]})
+        obs.metrics.counter(f"faults.{f.kind}").inc()
+        fired.append({"kind": f.kind, "time_s": f.time_s, "hit": hit})
+    # level-triggered: a converged cluster makes the second pass a no-op
+    reconcile("repair", t + plane.profile.detection_delay_s)
+    obs.tracer.assert_well_formed()
+    return {
+        "passes": passes, "faults": fired,
+        "converged": controlplane.diff(controlplane.ObservedState.observe(cluster),
+                                       desired).converged,
+        "partitions": {gid: g.partition() for gid, g in sorted(cluster.gpus.items())},
+        "failed": sorted(cluster.failed), "draining": sorted(cluster.draining),
+        "actions": [dataclasses.astuple(a) for a in cluster.actions_applied],
+        "metrics": obs.metrics.snapshot(), "spans": obs.tracer.span_summary(),
+        "trace": obs.tracer.export_json(),
+    }
+
+
+def token_model_rps(core, sim, profiles, cfg, measured_rps, batch, prompt_tokens,
+                    page_size=16, max_len=2048) -> tuple:
+    """The token-level serving model of ``cfg`` on a whole card, on the
+    profile a MeasuredProfile (ewma 1.0) corrects with the engine's measured
+    requests/s, at phase 5's geometry: ``batch`` slots, ``REQUESTS``
+    requests of ``prompt_tokens`` and ``NEW_TOKENS`` arriving at once, the
+    engine's page pool.  Returns (the model's requests/s, its pages)."""
+    name = cfg.name
+    prof = core.MeasuredProfile(profiles([name]), ewma=1.0)
+    prof.observe(name, WHOLE_CARD, batch, measured_rps)
+    per_page = sim.servemodel.page_bytes(page_size, cfg.num_kv_heads, cfg.head_dim,
+                                         cfg.num_layers)
+    pages = batch * -(-max_len // page_size)  # the engine's pool: every slot at max_len
+    knobs = sim.TokenKnobs(
+        prompt_tokens=prompt_tokens, decode_tokens=NEW_TOKENS,
+        profiled_decode_tokens=NEW_TOKENS, max_len=max_len, page_size=page_size,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, n_layers=cfg.num_layers,
+        hbm_gb_per_unit=(pages + 0.5) * per_page / WHOLE_CARD / 2**30,
+        prefill_chunk=prompt_tokens)
+    state = sim.TokenServingState([name], prof, lambda s: 1e9, knobs)
+    inst = sim.InstanceModel(0, name, WHOLE_CARD, slots=batch, knobs=knobs,
+                             step_time_s=state.step_time_for(name, WHOLE_CARD), now=0.0)
+    for i in range(REQUESTS):
+        inst.queue.append(sim.TokenRequest(i, name, 0.0, prompt_tokens, NEW_TOKENS))
+    inst.run_until(1e9, state.metrics)
+    done = state.metrics.completed_at[name]
+    if len(done) != REQUESTS:
+        fail(f"token: the model finished {len(done)} of {REQUESTS} requests")
+    return REQUESTS / max(done), knobs.num_pages(WHOLE_CARD)
+
+
+def control_phase(core, controlplane, obs_mod, router_mod, sim, profiles, get_config, plan,
+                  observations, seed) -> None:
+    """Phase 9: route, reconcile under faults and model the tokens of phase
+    8's day plan on phase 5's measured profile (host only)."""
+    rules, prof = core.h100_mig_rules(), plan["profile"]
+    dep, required = plan["deployment"], plan["day_rates"]
+    for svc, weights, counts in route_plan(router_mod, prof, dep):
+        total = sum(weights)
+        err = max(abs(c / ROUTE_PICKS - w / total) for w, c in zip(weights, counts))
+        tol = len(weights) / ROUTE_PICKS + 1e-3
+        phase("route", service=svc, instances=len(weights), picks=ROUTE_PICKS,
+              weights_rps=json.dumps([round(w, 3) for w in weights]),
+              dispatched=json.dumps(counts), max_share_err=f"{err:.6f}", bound=f"{tol:.6f}")
+        if err > tol:
+            fail(f"route {svc}: a share is {err:.6f} off its weight share, over {tol:.6f}")
+    for fault in CONTROL_FAULTS:
+        res = control_run(core, controlplane, obs_mod, rules, prof, dep, required, fault, seed)
+        for p in res["passes"]:
+            phase("control", fault=fault, step=p["pass"], stats=json.dumps(p["stats"]),
+                  actions=p["actions"], counts=json.dumps(p["counts"]),
+                  makespan_s=f"{p['makespan_s']:.1f}", serial_s=f"{p['serial_s']:.1f}")
+        bad = [p for p in res["partitions"].values() if not rules.is_legal_partition(p)]
+        phase("control", fault=fault, faults=json.dumps(res["faults"]),
+              converged=res["converged"], cards=len(res["partitions"]),
+              failed=json.dumps(res["failed"]), illegal=len(bad),
+              spans=res["spans"]["events"], metrics=json.dumps(res["metrics"]))
+        if not res["converged"]:
+            fail(f"control {fault}: the cluster did not converge to the day plan")
+        if bad:
+            fail(f"control {fault}: illegal partitions {bad} on h100_mig_rules()")
+    qwen = get_config("qwen3-8b")
+    obs7 = next(o for o in observations if o[0] == qwen.name)
+    _, plens = phase5_traffic(seed, qwen.name)
+    prompt = int(round(float(plens.mean())))
+    model_rps, pages = token_model_rps(core, sim, profiles, qwen, obs7[3], obs7[2], prompt)
+    phase("token", config=qwen.name, size=WHOLE_CARD, batch=obs7[2], requests=REQUESTS,
+          prompt_tokens=prompt, new_tokens=NEW_TOKENS, pages=pages,
+          engine_rps=f"{obs7[3]:.4f}", model_rps=f"{model_rps:.4f}",
+          rel_err=f"{abs(model_rps - obs7[3]) / obs7[3]:.4f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1297,7 +1560,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
     try:
         from repro_torch.configs import get_config, get_smoke_config, long_context_variant
-        from repro_torch import core
+        from repro_torch import controlplane, core, sim
+        from repro_torch import obs as obs_mod
         from repro_torch.core.arch_bridge import h100_arch_profiles, h100_node_profiles
         from repro_torch.core.online_profiles import MeasuredProfile
         from repro_torch.kernels import _build, ops
@@ -1308,7 +1572,7 @@ def main() -> None:
         from repro_torch import training
         from repro_torch.models import Model, kernels_bridge
         from repro_torch.models.common import flatten, tree_to, unflatten
-        from repro_torch.serving import Engine, Request, run_closed_loop
+        from repro_torch.serving import Engine, Request, router, run_closed_loop
     except ImportError as e:
         fail(f"cannot import the port (run from the root of a checkout): {e}")
     # 1. device ---------------------------------------------------------------
@@ -1586,12 +1850,21 @@ def main() -> None:
 
     # 8. the MIG-Serving plan on phase 5's measurements (host only) -----------------
     t0 = time.monotonic()
-    plan_mig(core, h100_arch_profiles, observed, args.seed)
+    plan = plan_mig(core, h100_arch_profiles, observed, args.seed)
     plan_node(core, h100_node_profiles, get_config, args.seed)
     plan_s = time.monotonic() - t0
     phase("plan", host_seconds=f"{plan_s:.2f}", budget_s=PLAN_BUDGET_S)
     if plan_s > PLAN_BUDGET_S:
         fail(f"plan: {plan_s:.1f} s of host time, over {PLAN_BUDGET_S} s")
+
+    # 9. the control plane on phase 8's day plan (host only) ------------------------
+    t0 = time.monotonic()
+    control_phase(core, controlplane, obs_mod, router, sim, h100_arch_profiles, get_config,
+                  plan, observed, args.seed)
+    control_s = time.monotonic() - t0
+    phase("control", host_seconds=f"{control_s:.2f}", budget_s=CONTROL_BUDGET_S)
+    if control_s > CONTROL_BUDGET_S:
+        fail(f"control: {control_s:.1f} s of host time, over {CONTROL_BUDGET_S} s")
 
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)

@@ -11,7 +11,12 @@ card's seventh):
     placement engine is :class:`repro_torch.core.mig.A100Rules`'s, and the
     sizes are 1, 2, 3, 4 and 7.  The paper's "no 4/7 + 3/7" exception is
     kept: it is carried over from the paper's A100 practice, and it cannot
-    be checked on a card whose MIG mode cannot be switched on.
+    be checked on a card whose MIG mode cannot be switched on.  On top of
+    the compute slices, the H100 80GB splits its memory into 8 slices and
+    gives each profile its own share of them (1g.10gb 1, 2g.20gb 2,
+    3g.40gb 4, 4g.40gb 4, 7g.80gb 8; ``roofline/hw.py:MIG_MEMORY_SLICES``),
+    so a partition is legal only where those shares fit the card too.  Of
+    the A100's partitions, that removes 1+3+3 (9 memory slices).
   * :class:`H100NodeRules` — one HGX node of 8 H100s on one NVSwitch,
     carved into groups of 1, 2, 4 or 8 cards (7, 14, 28 and 56 slices).
     NVSwitch joins every pair of cards, so a group needs no alignment: any
@@ -27,6 +32,7 @@ from typing import List, Sequence, Tuple
 
 from repro_torch.core.mig import A100Rules
 from repro_torch.core.rms import Partition, ReconfigRules
+from repro_torch.roofline.hw import MEMORY_SLICES, MIG_MEMORY_SLICES
 
 CARDS_PER_NODE = 8
 SLICES_PER_CARD = 7
@@ -34,7 +40,17 @@ SLICES_PER_CARD = 7
 
 class H100MigRules(A100Rules):
     """Legality oracle for the MIG instances of one H100 80GB: the A100's
-    placement table and exception (see the module docstring)."""
+    placement table and exception, and the card's 8 memory slices (see the
+    module docstring).  The inherited ``_legal_cache`` enumerates through
+    :meth:`is_legal_partition`, so ``legal_partitions()`` drops what
+    overfills memory too: the memory sum only grows as instances are
+    added, so no legal partition lies beyond an illegal one."""
+
+    def is_legal_partition(self, partition: Partition) -> bool:
+        return (
+            sum(MIG_MEMORY_SLICES[s] for s in partition) <= MEMORY_SLICES
+            and super().is_legal_partition(partition)
+        )
 
 
 @functools.lru_cache(maxsize=None)

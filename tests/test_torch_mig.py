@@ -76,16 +76,28 @@ def test_a100_rules_is_a_module_singleton():
 
 
 def test_h100_mig_rules_equal_the_a100_rules():
+    """The H100's rules are the A100's placements and 4+3 exception, less
+    the partitions whose profiles overfill the card's 8 memory slices."""
     a100, h100 = R.a100_rules(), T.h100_mig_rules()
     assert isinstance(h100, T.H100MigRules)
     assert (h100.device_size, tuple(h100.instance_sizes)) == (7, MIG_SIZES)
-    assert h100.legal_partitions() == a100.legal_partitions()
-    assert h100.full_partitions() == a100.full_partitions()
+
+    def fits_memory(p):
+        return sum(hw.MIG_MEMORY_SLICES[s] for s in p) <= hw.MEMORY_SLICES
+
+    want = [p for p in a100.legal_partitions() if fits_memory(p)]
+    assert h100.legal_partitions() == want
+    assert sorted(set(a100.legal_partitions()) - set(want)) == [(1, 3, 3)]
     for p in multisets(MIG_SIZES, 7):
-        assert h100.is_legal_partition(p) == a100.is_legal_partition(p)
-    # the paper's exception is carried over: 4+3 is out, 3+3 is in
+        assert h100.is_legal_partition(p) == (a100.is_legal_partition(p) and fits_memory(p))
+    # 1g + 3g + 3g needs 9 memory slices (90 GB of an 80 GB card); the
+    # paper's A100 keeps it
+    assert not h100.is_legal_partition((1, 3, 3))
+    assert a100.is_legal_partition((1, 3, 3))
+    # the paper's exception is carried over: 4+3 is out, 3+3 and 1+2+4 are in
     assert not h100.is_legal_partition((3, 4))
     assert h100.is_legal_partition((3, 3))
+    assert h100.is_legal_partition((1, 2, 4))
     validate_partition_universe(h100)
 
 

@@ -24,7 +24,9 @@ from repro.core import mcts as ref_mcts  # noqa: E402
 from repro_torch.core import ga as port_ga  # noqa: E402
 from repro_torch.core import greedy as port_greedy  # noqa: E402
 from repro_torch.core import mcts as port_mcts  # noqa: E402
+from repro.core.mig import A100Rules as RefA100Rules  # noqa: E402
 from repro_torch.core.arch_bridge import arch_perf_specs, h100_arch_profiles  # noqa: E402
+from repro_torch.roofline import hw  # noqa: E402
 
 # (n_models, seed, lognormal mean of the required rates)
 PROBLEMS = [(5, 9, 7.0), (12, 1, 8.0), (24, 0, 7.4)]
@@ -32,6 +34,20 @@ IDS = [f"n{n}-seed{s}" for n, s, _ in PROBLEMS]
 # the seven architectures chip_smoke.py serves on one card
 ONE_CARD_ARCHS = ["qwen3-8b", "mamba2-370m", "zamba2-1.2b", "granite-20b",
                   "phi4-mini-3.8b", "internvl2-1b", "musicgen-large"]
+
+
+class RefH100MigRules(RefA100Rules):
+    """The reference's A100 rules under the H100's memory slices: the rule
+    set of the port's ``h100_mig_rules()``, built on the reference's
+    engine, so that the reference's optimizer plans on the same legality."""
+
+    def is_legal_partition(self, partition):
+        return (sum(hw.MIG_MEMORY_SLICES[s] for s in partition) <= hw.MEMORY_SLICES
+                and super().is_legal_partition(partition))
+
+
+# one shared instance: the optimizer checks rules by identity
+REF_H100 = RefH100MigRules()
 
 
 @dataclasses.dataclass
@@ -367,7 +383,8 @@ def test_h100_profile_gives_the_same_plan_in_both_optimizers(seed):
     prof, rates = h100_problem(seed)
     kw = dict(ga_rounds=4, ga_population=4, mcts_iterations=60, seed=seed)
     rwl, pwl = workload(R, rates), workload(T, rates)
-    rrep = R.TwoPhaseOptimizer(R.a100_rules(), prof, rwl, **kw).run()
+    assert REF_H100.legal_partitions() == T.h100_mig_rules().legal_partitions()
+    rrep = R.TwoPhaseOptimizer(REF_H100, prof, rwl, **kw).run()
     prep = T.TwoPhaseOptimizer(T.h100_mig_rules(), prof, pwl, **kw).run()
     assert report_data(prep) == report_data(rrep)
     best = prep.best_deployment
@@ -375,7 +392,7 @@ def test_h100_profile_gives_the_same_plan_in_both_optimizers(seed):
     assert all(T.h100_mig_rules().is_legal_partition(c.partition) for c in best.configs)
     lb = T.lower_bound_gpus(T.h100_mig_rules(), prof, pwl)
     as_is = T.baseline_homogeneous(T.h100_mig_rules(), prof, pwl, 7)
-    assert lb == R.lower_bound_gpus(R.a100_rules(), prof, rwl)
+    assert lb == R.lower_bound_gpus(REF_H100, prof, rwl)
     assert lb <= best.num_gpus <= prep.fast_deployment.num_gpus
     assert best.num_gpus <= as_is
 
@@ -409,6 +426,36 @@ def test_chip_smoke_plan_phase_runs_on_the_cpu(capsys, monkeypatch):
         chip_smoke.plan_mig(T, h100_arch_profiles, seen[1:7], 0)
 
 
+def test_chip_smoke_plan_gives_every_size_the_size7_correction(capsys, monkeypatch):
+    """Phase 8's headline profile: every size where a model fits carries
+    the correction phase 5 measured on the whole card, which also prices
+    the as-is baseline; the plans corrected at size 7 only and uncorrected
+    are printed beside it."""
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    seen = []
+    make = chip_smoke.recording_profiles(T.MeasuredProfile, h100_arch_profiles, seen)
+    for arch, rps in zip(ONE_CARD_ARCHS, [1.1, 1.4, 1.2, 1.1, 1.7, 2.3, 0.9]):
+        make(arch).observe(arch, 7, 8, rps)
+    plan = chip_smoke.plan_mig(T, h100_arch_profiles, seen, 0)
+    prof = plan["profile"]
+    for arch in ONE_CARD_ARCHS:
+        whole = prof.correction(arch, 7)
+        assert whole < 0.71  # phase 5's observation landed (§8.3's units give ~0.700)
+        sizes = [s for s in prof.sizes() if prof.feasible(arch, s)]
+        assert sizes and sizes[-1] == 7
+        for s in sizes:
+            assert prof.correction(arch, s) == pytest.approx(whole, rel=1e-12), (arch, s)
+    out = capsys.readouterr().out
+    for label in ("size 7 only", "none"):
+        for name in ("day", "night"):
+            assert f'[plan] compare="{label}" plan={name} as_is=' in out
+    assert plan["deployment"].num_gpus >= 1 and set(plan["day_rates"]) == set(ONE_CARD_ARCHS)
+
+
 def test_beam_breaks_score_ties_as_the_reference():
     """Six clones of one architecture at equal rates tie on every score:
     the beam's unstable ``np.argsort(-scores)`` must order them as the
@@ -416,7 +463,7 @@ def test_beam_breaks_score_ties_as_the_reference():
     base = arch_perf_specs(["phi4-mini-3.8b"])[0]
     prof = T.RooflineProfiles([dataclasses.replace(base, name=f"clone{i}") for i in range(6)])
     rates = {f"clone{i}": 3.0 * prof.throughput("clone0", 7, 100.0) for i in range(6)}
-    rs = R.ConfigSpace(R.a100_rules(), prof, workload(R, rates))
+    rs = R.ConfigSpace(REF_H100, prof, workload(R, rates))
     ps = T.ConfigSpace(T.h100_mig_rules(), prof, workload(T, rates))
     for beam, branch in ((4, 4), (2, 8), (3, 20)):
         assert dep_data(T.BeamGreedy(ps, beam, branch).solve()) == dep_data(

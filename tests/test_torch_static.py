@@ -65,6 +65,59 @@ def test_port_imports_in_a_process_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_scheduler_layers_import_without_torch_or_jax():
+    """The port's host layers run without torch, as the reference's run
+    without jax: the config registry, ``core`` and its arch bridge, the
+    router (through the serving package), ``obs``, the control plane and
+    ``sim`` import in a process where torch and jax cannot."""
+    code = (
+        "import sys\n"
+        "for name in ('torch', 'jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None  # any import of these now raises ImportError\n"
+        "import repro_torch.configs, repro_torch.core, repro_torch.core.arch_bridge\n"
+        "import repro_torch.obs, repro_torch.controlplane, repro_torch.sim\n"
+        "from repro_torch.serving import InstanceHandle, OutOfPages, PagePool, WeightedRouter\n"
+        "import repro_torch.serving.router\n"
+        "from repro_torch.models import ModelConfig\n"
+        "assert 'repro_torch.serving.engine' not in sys.modules\n"
+        "assert 'repro_torch.models.transformer' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_lazy_exports_still_reach_the_engine_and_the_model():
+    from repro_torch import models, serving
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import engine
+
+    assert models.Model is Model
+    for name in ("Engine", "Request", "ServeStats", "attn_layer_count", "page_hbm_bytes",
+                 "run_closed_loop"):
+        assert getattr(serving, name) is getattr(engine, name)
+    assert set(serving.__all__) <= set(dir(serving))
+    with pytest.raises(AttributeError):
+        serving.no_such_name  # noqa: B018
+
+
+WALL_CLOCK_MODULES = {"time", "datetime"}
+SIM_TIME_PACKAGES = ("obs", "controlplane", "sim")
+
+
+def sim_time_files():
+    return sorted(f for pkg in SIM_TIME_PACKAGES for f in (PORT / pkg).rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", sim_time_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_sim_time_packages_import_no_wall_clock(path):
+    """As the reference's contract rule ``wall-clock`` holds its packages:
+    ``obs``, ``controlplane`` and ``sim`` run on sim time only."""
+    bad = [(root, line) for root, line in imported_roots(path) if root in WALL_CLOCK_MODULES]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def _smoke(cwd: Path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # no card, even on a machine with one
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
