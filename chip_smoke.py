@@ -128,7 +128,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the profile phase 5's measurement corrects (``ewma=1.0``), at phase
    5's geometry (batch 8, pages of 16, max_len 2048, 16 requests of the
    mean prompt length and 64 new tokens), its requests/s beside the
-   engine's (recorded, not gated).  The phase fails above 30 s of host time.
+   engine's (recorded, not gated).  The phase fails above 30 s of host time;
+10. sim (host only): the paper's closed loop (Figures 13-14),
+   ``ClusterSimulator`` on ``h100_mig_rules()`` and phase 8's measured
+   profile, over a replayed trace of phase 8's day rates for an hour, then
+   its night rates for an hour, in 60 s bins, with
+   ``SimConfig(reoptimize_every_s=1800, latency_slo_ms=100)`` and the
+   reference's defaults otherwise: once under the ``none`` fault profile
+   and once under ``gpu_loss``, each on the fluid serving model.  Each
+   [sim] line gives the per-service SLO satisfaction and mean attainment,
+   the cards at the end and at the peak, the transitions and their
+   makespans, the whole cards the peak demand would take as-is
+   (``baseline_homogeneous``) and the host seconds; the ``gpu_loss`` one
+   also the availability and the recovery time.  Each configuration runs
+   twice, and the phase fails unless both runs give the same
+   ``SimReport.to_json()`` bytes, every final partition is legal under
+   ``h100_mig_rules()`` and every attainment is finite (attainment and card
+   counts are recorded, not gated).  It fails above 60 s of host time.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -139,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1333,7 +1350,8 @@ def plan_mig(core, h100_arch_profiles, observations, seed) -> dict:
     if floor < 1.0 - 1e-9:  # §6: each service keeps min(day, night) throughout
         fail(f"plan: a service fell to {floor:.4f} of min(day, night) during the transition")
     phase("plan", mig_seconds=f"{time.monotonic() - t_phase:.2f}")
-    return {"profile": prof, "day_rates": day_rates, "deployment": reps["day"].best_deployment}
+    return {"profile": prof, "day_rates": day_rates, "night_rates": night_rates,
+            "deployment": reps["day"].best_deployment}
 
 
 def plan_node(core, h100_node_profiles, get_config, seed) -> None:
@@ -1402,11 +1420,14 @@ def route_plan(router_mod, prof, deployment) -> list:
 
 def fire_device_fault(injector, cluster, fault):
     """Fire one of the injector's scheduled device faults on ``cluster``, its
-    target drawn by the injector over sorted candidates as the reference's
-    simulator draws it: a GPU failure on a busy card, a drain of a machine
-    with a busy card, an instance crash on a serving instance (its process
-    restarts in place: the cluster keeps the instance).  Returns
-    (target, instances killed), or None when nothing is busy."""
+    target drawn by the injector over sorted candidates: a GPU failure on a
+    busy card and a drain of a machine with a busy card, as the simulator
+    draws them; an instance crash on any serving instance (its process
+    restarts in place: the cluster keeps the instance).  The simulator
+    draws a crash among the instances with work in flight (a fluid
+    backlog, or requests in the token model), which a cluster that serves
+    no traffic does not have; phase 10 runs the simulator's own draw.
+    Returns (target, instances killed), or None when nothing is busy."""
     busy = [gid for gid, g in cluster.gpus.items() if g.busy() and gid not in cluster.failed]
     if fault.kind == "gpu_failure":
         gid = injector.pick_gpu(busy)
@@ -1546,6 +1567,81 @@ def control_phase(core, controlplane, obs_mod, router_mod, sim, profiles, get_co
           prompt_tokens=prompt, new_tokens=NEW_TOKENS, pages=pages,
           engine_rps=f"{obs7[3]:.4f}", model_rps=f"{model_rps:.4f}",
           rel_err=f"{abs(model_rps - obs7[3]) / obs7[3]:.4f}")
+
+
+# -- phase 10: the closed-loop simulator on phase 8's measurements (host only) -------
+
+# the fault profiles phase 10 runs the loop under (each on the fluid model)
+SIM_FAULTS = ("none", "gpu_loss")
+# sim seconds of each half of the trace (the day rates, then the night ones)
+SIM_HALF_S = 3600.0
+SIM_BIN_S = 60.0
+# the reoptimize cadence, s (the reference's SimConfig default)
+SIM_REOPTIMIZE_S = 1800.0
+# host seconds phase 10 may take
+SIM_BUDGET_S = 60.0
+
+
+def sim_trace(sim, day_rates, night_rates):
+    """An hour of ``day_rates`` then an hour of ``night_rates`` (requests/s
+    by service), replayed in SIM_BIN_S bins."""
+    n = int(SIM_HALF_S / SIM_BIN_S)
+    return sim.replay_trace({a: np.concatenate([np.full(n, day_rates[a]),
+                                                np.full(n, night_rates[a])])
+                             for a in sorted(day_rates)}, bin_s=SIM_BIN_S)
+
+
+def sim_run(core, sim, prof, day_rates, night_rates, fault, seed):
+    """One closed loop of the day-then-night trace on ``prof`` over
+    ``h100_mig_rules()``; returns (the simulator, its report)."""
+    cfg = sim.SimConfig(reoptimize_every_s=SIM_REOPTIMIZE_S, latency_slo_ms=PLAN_SLO_MS,
+                        seed=seed, fault_profile=fault)
+    s = sim.ClusterSimulator(core.h100_mig_rules(), prof,
+                             sim_trace(sim, day_rates, night_rates), cfg)
+    return s, s.run()
+
+
+def sim_phase(core, sim, plan, seed) -> None:
+    """Phase 10: the paper's closed loop on phase 8's measured profile and
+    day and night rates, under each of SIM_FAULTS, each run twice."""
+    prof, day, night = plan["profile"], plan["day_rates"], plan["night_rates"]
+    for fault in SIM_FAULTS:
+        t0 = time.monotonic()
+        s, rep = sim_run(core, sim, prof, day, night, fault, seed)
+        host_s = time.monotonic() - t0
+        again = sim_run(core, sim, prof, day, night, fault, seed)[1]
+        same = again.to_json() == rep.to_json()
+        sat = {a: rep.slo_satisfaction(a) for a in rep.services}
+        att = {a: rep.mean_attainment(a) for a in rep.services}
+        peak = max([rep.final_gpus] + [n for t in rep.transitions
+                                       for n in (t.gpus_before, t.gpus_after)])
+        # as-is: whole cards for the trace's peak rates, under the loop's
+        # headroom and SLO (as the scenario matrix counts it)
+        peak_rates = {a: float(s.trace.rates[a].max()) for a in s.trace.services}
+        as_is = core.baseline_homogeneous(s.rules, s.profile, s.driver.workload_for(peak_rates),
+                                          s.rules.device_size)
+        bad = [g.partition() for g in s.cluster.gpus.values()
+               if not s.rules.is_legal_partition(g.partition())]
+        extra = {}
+        if fault != "none":
+            rec = rep.recovery_time_s()
+            extra = dict(faults=len(rep.faults), availability=f"{rep.availability():.4f}",
+                         recovery_s="none" if rec is None else f"{rec:.1f}")
+        phase("sim", fault=fault, serving_model=s.config.serving_model,
+              slo_satisfaction=json.dumps({a: round(v, 4) for a, v in sat.items()}),
+              mean_attainment=json.dumps({a: round(v, 4) for a, v in att.items()}),
+              gpus_final=rep.final_gpus, gpus_peak=peak, as_is=as_is,
+              transitions=len(rep.transitions), reoptimize_checks=rep.reoptimize_checks,
+              makespan_s=json.dumps([round(t.parallel_seconds, 1) for t in rep.transitions]),
+              transparent=rep.transparent, **extra, illegal=len(bad), same_bytes=same,
+              report_sha256=hashlib.sha256(rep.to_json().encode()).hexdigest()[:16],
+              host_s=f"{host_s:.2f}")
+        if not same:
+            fail(f"sim {fault}: a second run with seed {seed} gave other report bytes")
+        if bad:
+            fail(f"sim {fault}: illegal partitions {bad} on h100_mig_rules()")
+        if not all(math.isfinite(v) for v in [*sat.values(), *att.values()]):
+            fail(f"sim {fault}: an attainment is not finite")
 
 
 def main() -> None:
@@ -1865,6 +1961,14 @@ def main() -> None:
     phase("control", host_seconds=f"{control_s:.2f}", budget_s=CONTROL_BUDGET_S)
     if control_s > CONTROL_BUDGET_S:
         fail(f"control: {control_s:.1f} s of host time, over {CONTROL_BUDGET_S} s")
+
+    # 10. the closed-loop simulator on phase 8's measurements (host only) -----------
+    t0 = time.monotonic()
+    sim_phase(core, sim, plan, args.seed)
+    sim_s = time.monotonic() - t0
+    phase("sim", host_seconds=f"{sim_s:.2f}", budget_s=SIM_BUDGET_S)
+    if sim_s > SIM_BUDGET_S:
+        fail(f"sim: {sim_s:.1f} s of host time, over {SIM_BUDGET_S} s")
 
     phase("done", seconds=f"{time.monotonic() - t_start:.1f}")
     # launches: the sum over the main-path runs (each counted from 0)

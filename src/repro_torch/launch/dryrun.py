@@ -7,7 +7,9 @@ fake process group's mesh, under :class:`StepCounter`, which counts
 rank 0's FLOPs, bytes, collective bytes and peak memory.  For each combo:
 
   1. builds the mesh: one HGX H100 node, ``(data, model) = (2, 4)`` over 8
-     cards on one NVSwitch (``--mesh 1x1`` is one card),
+     cards on one NVSwitch (``--mesh 1x1`` is one card), or with
+     ``--multi-pod`` two nodes, ``(pod, data, model) = (2, 2, 4)`` over 16
+     cards, the nodes joined by InfiniBand,
   2. builds the step (train/prefill/decode) with fake DTensor arguments
      placed by the model's partition specs,
   3. runs it under the counter; with ``--device cuda`` (the default) the
@@ -18,7 +20,8 @@ rank 0's FLOPs, bytes, collective bytes and peak memory.  For each combo:
      touched),
   4. writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``: the
      reference's roofline keys, plus the target, the kernels' booked work,
-     the collective bytes by mesh axis and the seconds the run took.
+     the collective bytes by mesh axis (each priced at its own link: NVLink
+     within a node, InfiniBand across nodes) and the seconds the run took.
 
 Every term divides by the H100 SXM5 data sheet's constants
 (``repro_torch.roofline.hw``): the dry run measures nothing on a card.
@@ -26,20 +29,21 @@ Failures here (a missing sharding rule, a shape mismatch) are bugs.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
 from typing import Optional, Tuple, Union
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch.mesh import NODE_SHAPE, make_slice_mesh
+from repro_torch.launch.mesh import NODE_SHAPE, POD_SHAPE, make_slice_mesh
 from repro_torch.launch.specs import SHAPES, ShapeSpec, build_step
 from repro_torch.roofline import hw
 from repro_torch.roofline.analysis import (
@@ -53,12 +57,18 @@ OUT_DIR = os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun_torch")
 
 
-def target(mesh_shape: Tuple[int, int]) -> str:
-    chips = mesh_shape[0] * mesh_shape[1]
+def target(mesh_shape: Tuple[int, ...]) -> str:
+    chips = math.prod(mesh_shape)
     card = (f"H100 SXM5 80GB (data sheet: {hw.PEAK_FLOPS_BF16 / 1e12:g} TFLOP/s bf16, "
             f"{hw.HBM_BW / 1e12:g} TB/s HBM, NVLink {hw.NVLINK_BW / 1e9:g} GB/s)")
     if chips == 1:
         return f"one {card}"
+    if len(mesh_shape) == 3:
+        nodes = mesh_shape[0]
+        return (f"{chips} x {card} on {nodes} HGX nodes of {chips // nodes} cards, each "
+                f"node on one NVSwitch, the nodes joined by InfiniBand (one ConnectX-7 NDR "
+                f"port a card, {hw.IB_BW / 1e9:g} GB/s), mesh (pod, data, model) = "
+                f"{tuple(mesh_shape)}")
     return (f"{chips} x {card} on one NVSwitch, mesh (data, model) = "
             f"({mesh_shape[0]}, {mesh_shape[1]})")
 
@@ -97,7 +107,7 @@ def count_step(cfg, shape: ShapeSpec, mesh, device: str = "cuda", **knobs):
 def run_one(
     arch: str,
     shape: Union[str, ShapeSpec],
-    mesh_shape: Tuple[int, int] = NODE_SHAPE,
+    mesh_shape: Tuple[int, ...] = NODE_SHAPE,
     device: str = "cuda",
     seq_axis: Optional[str] = "model",
     remat: bool = True,
@@ -105,13 +115,17 @@ def run_one(
     infer_shard_data: bool = False,
     batch_all_axes: bool = False,
     moe_shard_map: bool = False,
+    act_tp: bool = False,
+    kv_hint: bool = False,
+    moe_shard_capacity: bool = False,
     layers: Optional[int] = None,
     out_dir: str = OUT_DIR,
     tag: str = "",
     verbose: bool = True,
 ) -> dict:
     """Price one step; returns (and writes) its roofline dict.  ``layers``
-    cuts the config's depth, as the card's own runs cut it."""
+    cuts the config's depth, as the card's own runs cut it; ``mesh_shape``
+    is (data, model), or (pod, data, model) over nodes."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     mesh = make_slice_mesh(*mesh_shape)
     mesh_name = "x".join(str(n) for n in mesh_shape)
@@ -120,7 +134,8 @@ def run_one(
     counter, bundle, out_bytes = count_step(
         cfg, shape, mesh, device, seq_axis=seq_axis, remat=remat, zero1=zero1,
         infer_shard_data=infer_shard_data, batch_all_axes=batch_all_axes,
-        moe_shard_map=moe_shard_map,
+        moe_shard_map=moe_shard_map, act_tp=act_tp, kv_hint=kv_hint,
+        moe_shard_capacity=moe_shard_capacity,
     )
     t1 = time.monotonic()
 
@@ -128,20 +143,20 @@ def run_one(
         arch=arch,
         shape=shape.name,
         mesh=mesh_name + (f"+{tag}" if tag else ""),
-        chips=mesh_shape[0] * mesh_shape[1],
+        chips=math.prod(mesh_shape),
         flops_per_device=counter.flops,
         bytes_per_device=counter.bytes,
         collective_bytes_per_device=dict(counter.collectives),
         model_flops=model_step_flops(bundle.cfg, shape),
         peak_memory_per_device=float(counter.peak_bytes),
         output_bytes_per_device=out_bytes,
+        collective_bytes_by_axis=dict(counter.collectives_by_axis),
     )
     d = report.to_dict()
     d["target"] = target(mesh_shape)
     d["device"] = device
     d["layers"] = bundle.cfg.num_layers
     d["trace_seconds"] = t1 - t0
-    d["collective_bytes_by_axis"] = dict(counter.collectives_by_axis)
     d["kernels"] = counter.kernels
     os.makedirs(out_dir, exist_ok=True)
     fname = f"{arch}__{shape.name}__{mesh_name}{('__' + tag) if tag else ''}.json"
@@ -164,14 +179,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(
         description="Price (arch x shape) steps on an H100 mesh from a fake run.",
         epilog="The reference's --donate-cache has no counterpart: the port updates "
-               "its caches in place.  Its --act-tp, --kv-hint and --moe-shard-capacity "
-               "(in-model sharding constraints) and --multi-pod are not ported.")
+               "its caches in place.")
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", type=parse_shape,
                     help=f"one of {', '.join(SHAPES)}, or kind:seq_len:global_batch")
     ap.add_argument("--all", action="store_true", help="every arch x every SHAPES entry")
-    ap.add_argument("--mesh", default="x".join(map(str, NODE_SHAPE)),
-                    help="data x model, e.g. 2x4 (one HGX node, the default) or 1x1")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="two HGX nodes joined by InfiniBand: (pod, data, model) = "
+                         + "x".join(map(str, POD_SHAPE)))
+    ap.add_argument("--mesh", help="data x model, e.g. 2x4 (one HGX node, the default) "
+                                   "or 1x1; not with --multi-pod")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: price the kernels as booked; cpu: price their plain versions")
     ap.add_argument("--layers", type=int, help="cut the config's depth to this many layers")
@@ -182,14 +199,24 @@ def main() -> None:
     ap.add_argument("--infer-shard-data", action="store_true")
     ap.add_argument("--batch-all-axes", action="store_true")
     ap.add_argument("--moe-shard-map", action="store_true")
+    ap.add_argument("--act-tp", action="store_true",
+                    help="the training blocks' residual stream sharded over 'model'")
+    ap.add_argument("--kv-hint", action="store_true",
+                    help="k/v batch-sharded only, once above the attention")
+    ap.add_argument("--moe-shard-capacity", action="store_true",
+                    help="the MoE expert buffer's capacity sharded over 'data'")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out-dir", default=OUT_DIR)
     args = ap.parse_args()
     if not args.all and (args.arch is None or args.shape is None):
         ap.error("give --arch and --shape, or --all")
-    mesh_shape = tuple(int(n) for n in args.mesh.split("x"))
-    if len(mesh_shape) != 2:
-        ap.error(f"--mesh {args.mesh!r} is not rows x cols")
+    if args.multi_pod and args.mesh is not None:
+        ap.error("--multi-pod is its own mesh: give it without --mesh")
+    mesh_shape = POD_SHAPE if args.multi_pod else NODE_SHAPE
+    if args.mesh is not None:
+        mesh_shape = tuple(int(n) for n in args.mesh.split("x"))
+        if len(mesh_shape) != 2:
+            ap.error(f"--mesh {args.mesh!r} is not rows x cols")
 
     combos = (
         [(a, SHAPES[s]) for a in ARCH_IDS for s in SHAPES]
@@ -206,7 +233,9 @@ def main() -> None:
                 remat=not args.no_remat, zero1=args.zero1,
                 infer_shard_data=args.infer_shard_data,
                 batch_all_axes=args.batch_all_axes, moe_shard_map=args.moe_shard_map,
-                layers=args.layers, out_dir=args.out_dir, tag=args.tag,
+                act_tp=args.act_tp, kv_hint=args.kv_hint,
+                moe_shard_capacity=args.moe_shard_capacity, layers=args.layers,
+                out_dir=args.out_dir, tag=args.tag,
             )
         except Exception as e:  # noqa: BLE001 — report all failures at the end
             failures.append((arch, shape.name, repr(e)))

@@ -16,8 +16,12 @@ specs, made without a broadcast (``src_data_rank=None``).  The steps:
 Knobs, as the reference's: ``seq_axis`` (the mesh axis the cache rows
 shard over), ``zero1`` (AdamW moments also sharded over "data"),
 ``infer_shard_data`` (serving weights sharded over both axes),
-``batch_all_axes`` (a decode batch over every axis) and ``moe_shard_map``
-(expert-parallel MoE dispatch).
+``batch_all_axes`` (a decode batch over every axis), ``moe_shard_map``
+(expert-parallel MoE dispatch), and the three that act inside the model
+(``Model``'s partition specs, applied where the reference applies its
+sharding constraints): ``act_tp`` (the residual stream's features over
+"model"), ``kv_hint`` (k/v batch-sharded only, above the attention) and
+``moe_shard_capacity`` (the expert buffer's capacity over "data").
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from repro_torch.configs import long_context_variant
 from repro_torch.models import Model
-from repro_torch.models.common import DTYPES, PartitionSpec, unflatten
+from repro_torch.models.common import DTYPES, PartitionSpec, batch_spec, placements, unflatten
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import adamw
 from repro_torch.training.train_loop import make_train_step
@@ -68,18 +72,6 @@ def _dp_axes(mesh, batch: int) -> Tuple[str, ...]:
     axes = tuple(a for a in sizes if a in ("pod", "data"))
     size = math.prod(sizes[a] for a in axes) if axes else 1
     return axes if axes and batch % size == 0 and batch >= size else ()
-
-
-def placements(spec: PartitionSpec, mesh) -> list:
-    """A partition spec as DTensor placements on ``mesh``: each mesh axis
-    shards the tensor dimension whose entry names it, or replicates."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    def names(entry):
-        return entry if isinstance(entry, tuple) else (entry,)
-
-    return [next((Shard(i) for i, e in enumerate(spec) if axis in names(e)), Replicate())
-            for axis in mesh.mesh_dim_names]
 
 
 def _distribute(mesh, tree, specs, make: Callable[[str, Any], torch.Tensor]):
@@ -133,15 +125,27 @@ def build_step(
     infer_shard_data: bool = False,
     batch_all_axes: bool = False,
     moe_shard_map: bool = False,
+    act_tp: bool = False,
+    kv_hint: bool = False,
+    moe_shard_capacity: bool = False,
 ) -> StepBundle:
     """The step of ``shape`` (a ``SHAPES`` name or a ShapeSpec) for
-    ``arch_cfg`` on ``mesh`` (a ``DeviceMesh`` over "data" and "model").
-    The knobs beyond the paper-faithful baseline:
-      zero1            -- AdamW moments also sharded over the data axis
-      infer_shard_data -- serving weights sharded over data AND model axes
-      batch_all_axes   -- a decode batch over every mesh axis, no cache rows
-                          sharded (dense and MoE families)
-      moe_shard_map    -- MoE layers dispatch expert parallel over "model"
+    ``arch_cfg`` on ``mesh`` (a ``DeviceMesh`` over "data" and "model", or
+    "pod", "data" and "model").  The knobs beyond the paper-faithful
+    baseline:
+      zero1              -- AdamW moments also sharded over the data axis
+      infer_shard_data   -- serving weights sharded over data AND model axes
+      batch_all_axes     -- a decode batch over every mesh axis, no cache rows
+                            sharded (dense and MoE families)
+      moe_shard_map      -- MoE layers dispatch expert parallel over "model"
+      act_tp             -- the training blocks' residual stream placed
+                            P(dp, None, "model") (not in decode steps): the
+                            tensor-parallel all-reduces become reduce-scatter
+                            and all-gather pairs
+      kv_hint            -- k/v placed P(dp, None, None, None) once, above
+                            the full-sequence attention
+      moe_shard_capacity -- the (E, C, d) expert buffer placed
+                            P("model", "data", None)
     """
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = shape_config(arch_cfg, shape)
@@ -163,6 +167,10 @@ def build_step(
         remat=remat and shape.kind == "train",
         mesh_axes=tuple(sizes),
         moe_mesh=mesh if moe_shard_map else None,
+        act_tp=(batch_spec(tuple(sizes)), None, "model")
+        if act_tp and shape.kind != "decode" else None,
+        kv_hint=(dp, None, None, None) if kv_hint else None,
+        moe_buf_spec=("model", "data", None) if moe_shard_capacity else None,
     )
     specs = model.param_specs()
     shapes = {k: s[0] for k, s in specs.items()}

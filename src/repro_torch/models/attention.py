@@ -26,7 +26,8 @@ import torch
 from repro_torch.models import kernels_bridge
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
-    ParamSpec, PartitionSpec, apply_rope, is_fake, rmsnorm, split_heads, write_rows,
+    ParamSpec, PartitionSpec, apply_rope, constrain, is_fake, rmsnorm, split_heads,
+    write_rows,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -63,25 +64,31 @@ def _gqa_qkv(
 
 
 def _gqa_attend(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    kv_hint: Optional[PartitionSpec] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence causal (optionally sliding-window) attention over any
-    ``S``, the window a mask over the whole sequence; returns (out, k, v)."""
+    ``S``, the window a mask over the whole sequence; returns (out, k, v).
+    ``kv_hint``: a partition spec k/v take once, above the attention (the
+    reference's constraint above its tile loop; DTensors only)."""
     B, S, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, positions)
+    k, v = constrain(k, kv_hint), constrain(v, kv_hint)
     o = kernels_bridge.causal_attention(q, k, v, window=cfg.sliding_window)
     return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
 
 
 def gqa_forward(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    kv_hint: Optional[PartitionSpec] = None,
 ) -> torch.Tensor:
     """Full-sequence causal attention without a cache (the training path)."""
-    return _gqa_attend(p, cfg, x, positions)[0]
+    return _gqa_attend(p, cfg, x, positions, kv_hint)[0]
 
 
 def gqa_prefill(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    kv_hint: Optional[PartitionSpec] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence causal (optionally sliding-window) attention that also
     emits the decode cache: the whole k/v, or, when the window is shorter
@@ -92,7 +99,7 @@ def gqa_prefill(
     W = cfg.sliding_window
     if W and W < S and S % W:
         raise ValueError(f"prefill length {S} must be a multiple of the ring window {W}")
-    out, k, v = _gqa_attend(p, cfg, x, positions)
+    out, k, v = _gqa_attend(p, cfg, x, positions, kv_hint)
     if W and W < S:
         slot_pos = torch.arange(S - W, S, dtype=torch.int32, device=x.device)
         return out, {"k": k[:, S - W:], "v": v[:, S - W:], "slot_pos": slot_pos.expand(B, W)}
@@ -302,10 +309,12 @@ def _mla_latent(
 
 
 def _mla_attend(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    kv_hint: Optional[PartitionSpec] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence MLA with the latent expanded into per-head K/V; returns
-    (out, ckv, krope)."""
+    (out, ckv, krope).  ``kv_hint`` as in :func:`_gqa_attend`, on the
+    expanded K/V."""
     B, S, _ = x.shape
     H = cfg.num_heads
     nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
@@ -315,6 +324,7 @@ def _mla_attend(
     v = split_heads(ckv @ p["w_uv"], H, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
+    k, v = constrain(k, kv_hint), constrain(v, kv_hint)
     o = kernels_bridge.causal_attention(
         q, k, v, window=cfg.sliding_window, scale=1.0 / math.sqrt(nd + rd)
     )
@@ -322,14 +332,16 @@ def _mla_attend(
 
 
 def mla_forward(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    kv_hint: Optional[PartitionSpec] = None,
 ) -> torch.Tensor:
     """Full-sequence causal MLA without a cache (the training path)."""
-    return _mla_attend(p, cfg, x, positions)[0]
+    return _mla_attend(p, cfg, x, positions, kv_hint)[0]
 
 
 def mla_prefill(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    kv_hint: Optional[PartitionSpec] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence MLA that also emits the latent decode cache: the whole
     ``ckv``/``krope``, or the ring of their last ``W`` rows with
@@ -339,7 +351,7 @@ def mla_prefill(
     W = cfg.sliding_window
     if W and W < S and S % W:
         raise ValueError(f"prefill length {S} must be a multiple of the ring window {W}")
-    out, ckv, krope = _mla_attend(p, cfg, x, positions)
+    out, ckv, krope = _mla_attend(p, cfg, x, positions, kv_hint)
     if W and W < S:
         slot_pos = torch.arange(S - W, S, dtype=torch.int32, device=x.device)
         return out, {"ckv": ckv[:, S - W:], "krope": krope[:, S - W:],

@@ -290,6 +290,29 @@ def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], heads, head_dim)
 
 
+def placements(spec: PartitionSpec, mesh) -> list:
+    """A partition spec as DTensor placements on ``mesh``: each mesh axis
+    shards the tensor dimension whose entry names it, or replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def names(entry):
+        return entry if isinstance(entry, tuple) else (entry,)
+
+    return [next((Shard(i) for i, e in enumerate(spec) if axis in names(e)), Replicate())
+            for axis in mesh.mesh_dim_names]
+
+
+def constrain(t: torch.Tensor, spec: Optional[PartitionSpec]) -> torch.Tensor:
+    """A DTensor ``t`` redistributed to the partition spec ``spec`` (the
+    reference's ``with_sharding_constraint``; partial sums are reduced, and
+    scattered where the spec shards a dimension); plain tensors, and any
+    tensor when ``spec`` is None, pass as they are."""
+    if spec is None or not is_dtensor(t):
+        return t
+    pl = placements(spec, t.device_mesh)
+    return t if pl == list(t.placements) else t.redistribute(placements=pl)
+
+
 def settle(t: torch.Tensor) -> torch.Tensor:
     """A sublayer's output as the residual stream holds it: a DTensor keeps
     its batch sharding and is made whole on every other axis (partial sums

@@ -19,12 +19,14 @@ atomic adds.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, is_dtensor, shard_span
+from repro_torch.models.common import (
+    ParamSpec, PartitionSpec, is_dtensor, placements, shard_span,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_forward, mlp_specs
 
@@ -57,15 +59,22 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return w[..., :k], idx[..., :k]
 
 
+def _experts(p: Dict[str, torch.Tensor], buf: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLU of an (E, C, d) buffer, batched over E."""
+    h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
+    return torch.bmm(h, p["we_down"])  # (E, C, d)
+
+
 def _dispatch(
     p: Dict[str, torch.Tensor], cfg: ModelConfig, xf: torch.Tensor, lo: int, n_local: int,
-    C: int,
+    C: int, experts: Callable = _experts,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Route the ``T`` tokens of ``xf`` (T, d) over all ``E`` experts and run
     the experts ``lo .. lo + n_local`` (whose weights ``p["we_*"]`` holds)
-    at ``C`` slots each; returns (their weighted output (T, d), the top-k
-    indices (T, k), the router probabilities (T, E)).  With every expert
-    (``lo`` 0, ``n_local`` E) the output is the layer's routed output."""
+    at ``C`` slots each, by ``experts(p, buf)``; returns (their weighted
+    output (T, d), the top-k indices (T, k), the router probabilities
+    (T, E)).  With every expert (``lo`` 0, ``n_local`` E) the output is the
+    layer's routed output."""
     T, d = xf.shape
     k = cfg.experts_per_token
     logits = xf.float() @ p["router"].float()  # (T, E)
@@ -86,8 +95,7 @@ def _dispatch(
     buf = torch.zeros((n_local, C, d), dtype=xf.dtype, device=xf.device)
     buf.index_put_((safe_e, safe_pos), xk * keep[:, None], accumulate=True)
 
-    h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
-    hout = torch.bmm(h, p["we_down"])  # (n_local, C, d)
+    hout = experts(p, buf)  # (n_local, C, d)
 
     gathered = hout[safe_e, safe_pos] * (keep * w_f)[:, None]  # (T*k, d)
     return gathered.reshape(T, k, d).sum(dim=1), idx, probs
@@ -100,14 +108,18 @@ def _aux(idx: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor:
 
 
 def moe_forward(
-    p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor
+    p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+    buf_spec: Optional[PartitionSpec] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss).  Every row takes part,
     idle decode rows included, as in the reference: they compete for
     capacity in arrival order.  A DTensor ``x`` (the dry run) computes
-    the same function shard by shard (:func:`_moe_sharded`)."""
+    the same function shard by shard (:func:`_moe_sharded`); ``buf_spec``
+    places its (E, C, d) expert buffer (the reference's constraint:
+    ``("model", "data", None)`` splits the capacity over "data").  Plain
+    tensors ignore it."""
     if is_dtensor(x):
-        return _moe_sharded(p, cfg, x)
+        return _moe_sharded(p, cfg, x, buf_spec)
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
@@ -117,13 +129,18 @@ def moe_forward(
     return out.reshape(B, S, d), _aux(idx, probs, cfg.num_experts)
 
 
-def _moe_sharded(p, cfg: ModelConfig, x):
+def _moe_sharded(p, cfg: ModelConfig, x, buf_spec: Optional[PartitionSpec] = None):
     """:func:`moe_forward` of DTensors, with the reference's dispatch: every
     device routes all ``B * S`` tokens at the global capacity (``x`` is
     gathered whole, since arrival order couples the tokens) and runs the
     experts of its shard over all of them; the shared experts are the
     tensor-parallel MLP.  The outputs are partial sums over the axes that
-    shard the experts; each device keeps its own batch rows on the others."""
+    shard the experts; each device keeps its own batch rows on the others.
+
+    A ``buf_spec`` that shards the buffer's capacity (dim 1) over some axes
+    runs each device's experts on its own slots only; their outputs are
+    then all-gathered over those axes (the reference's XLA gathers them for
+    the combine).  Its experts dim must be sharded as the weights are."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -144,11 +161,30 @@ def _moe_sharded(p, cfg: ModelConfig, x):
     r0, n_rows = shard_span(B, mesh, rows_pl)
     lo = shard_span(cfg.num_experts, mesh, experts)[0]
     C = capacity(T, cfg)
+    cap_axes, c0, cn = [], 0, C
+    if buf_spec is not None:
+        buf_pl = placements(buf_spec, mesh)
+        if [pl.is_shard(0) for pl in buf_pl] != ep:
+            raise ValueError(f"expert buffer spec {buf_spec} must shard the experts as the "
+                             f"weights do: {tuple(p['we_gate'].placements)}")
+        cap_axes = [a for a, pl in enumerate(buf_pl) if pl.is_shard(1)]
+        n_cap = math.prod(mesh.size(a) for a in cap_axes)
+        if C % n_cap:
+            raise ValueError(f"capacity {C} does not split over {n_cap} devices")
+        c0, cn = shard_span(C, mesh, buf_pl, dim=1)
+
+    def run_experts(lp, buf):
+        if not cap_axes:
+            return _experts(lp, buf)
+        hout = _experts(lp, buf[:, c0:c0 + cn])
+        for a in reversed(cap_axes):  # the innermost split first
+            hout = _Gather.apply(hout, 1, mesh.get_group(a))
+        return hout
 
     def local(xl, router, wg, wu, wd, *shared):
         xf = xl.reshape(T, d)
         lp = {"router": router, "we_gate": wg, "we_up": wu, "we_down": wd}
-        out, idx, probs = _dispatch(lp, cfg, xf, lo, wg.shape[0], C)
+        out, idx, probs = _dispatch(lp, cfg, xf, lo, wg.shape[0], C, run_experts)
         if shared:
             out = out + mlp_forward(dict(zip(("w_gate", "w_up", "w_down"), shared)), xf)
         out = out.reshape(B, S, d)[r0:r0 + n_rows]
@@ -160,6 +196,25 @@ def _moe_sharded(p, cfg: ModelConfig, x):
     return local_map(local, out_placements=(out_pl, rep), in_placements=tuple(in_pl),
                      device_mesh=mesh, redistribute_inputs=True)(
         x, *(flat[k] for k in keys))
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over a process group; the gradient is the
+    output's gradient reduce-scattered back along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dim: int, group) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.dim, ctx.group = dim, group
+        return funcol.wait_tensor(funcol.all_gather_tensor(t, dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        scattered = funcol.reduce_scatter_tensor(g, "sum", ctx.dim, ctx.group)
+        return funcol.wait_tensor(scattered), None, None
 
 
 class _PSum(torch.autograd.Function):

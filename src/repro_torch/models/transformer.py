@@ -48,8 +48,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    DTYPES, ParamSpec, PartitionSpec, batch_spec, embedding, init_params, is_dtensor,
-    resolve_device, rmsnorm, settle,
+    DTYPES, ParamSpec, PartitionSpec, batch_spec, constrain, embedding, init_params,
+    is_dtensor, resolve_device, rmsnorm, settle,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_forward, mlp_specs
@@ -67,16 +67,18 @@ def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return attn.mla_specs(cfg) if cfg.attention_kind == "mla" else attn.gqa_specs(cfg)
 
 
-def _attn_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor):
+def _attn_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+                  kv_hint: Optional[PartitionSpec] = None):
     if cfg.attention_kind == "mla":
-        return attn.mla_prefill(p, cfg, h, positions)
-    return attn.gqa_prefill(p, cfg, h, positions)
+        return attn.mla_prefill(p, cfg, h, positions, kv_hint)
+    return attn.gqa_prefill(p, cfg, h, positions, kv_hint)
 
 
-def _attn_forward(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor):
+def _attn_forward(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+                  kv_hint: Optional[PartitionSpec] = None):
     if cfg.attention_kind == "mla":
-        return attn.mla_forward(p, cfg, h, positions)
-    return attn.gqa_forward(p, cfg, h, positions)
+        return attn.mla_forward(p, cfg, h, positions, kv_hint)
+    return attn.gqa_forward(p, cfg, h, positions, kv_hint)
 
 
 def _attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device):
@@ -128,6 +130,19 @@ class Model:
     # a DeviceMesh with a "model" axis: the MoE layers then dispatch expert
     # parallel over it (``moe_forward_shard_map``)
     moe_mesh: Any = None
+    # the reference's in-model sharding knobs, as partition specs that a
+    # DTensor is redistributed to where the reference constrains it (plain
+    # tensors ignore them):
+    # the residual stream after each sublayer of the training blocks, in
+    # place of the batch-only ``settle`` (the reference's ``act_tp``:
+    # P(dp, None, "model"), tensor-parallel all-reduces become
+    # reduce-scatter and all-gather pairs)
+    act_tp: Optional[PartitionSpec] = None
+    # k/v of the full-sequence attention, once above the attention
+    kv_hint: Optional[PartitionSpec] = None
+    # the MoE (E, C, d) expert buffer (P("model", "data", None) splits the
+    # capacity over "data", so each data shard runs its slots only)
+    moe_buf_spec: Optional[PartitionSpec] = None
 
     def __post_init__(self):
         cfg = self.cfg
@@ -254,7 +269,7 @@ class Model:
         when the model has one, else the capacity dispatch."""
         mesh = self.moe_mesh
         if mesh is None:
-            return moe_mod.moe_forward(p, self.cfg, h)
+            return moe_mod.moe_forward(p, self.cfg, h, self.moe_buf_spec)
         dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
         return moe_mod.moe_forward_shard_map(p, self.cfg, h, mesh, dp_axes=dp)
 
@@ -268,12 +283,16 @@ class Model:
         cfg = self.cfg
         eps = cfg.norm_eps
         if cfg.arch_type in BLOCK_TYPES:
-            x = x + settle(_attn_forward(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions))
-            h = rmsnorm(x, lp["ln2"], eps)
+            # settle(x) is x itself, unless act_tp left it sharded over its
+            # features: then it is the all-gather before the sublayer
+            a = _attn_forward(lp["attn"], cfg, rmsnorm(settle(x), lp["ln1"], eps), positions,
+                              self.kv_hint)
+            x = self._residual(x, a)
+            h = rmsnorm(settle(x), lp["ln2"], eps)
             if "moe" in lp:
                 out, aux = self._moe(lp["moe"], h)
-                return x + settle(out), aux
-            return x + settle(mlp_forward(lp["mlp"], h)), 0.0
+                return self._residual(x, out), aux
+            return self._residual(x, mlp_forward(lp["mlp"], h)), 0.0
         if cfg.arch_type == "ssm":
             return x + settle(ssm_mod.ssm_forward(lp, cfg, rmsnorm(x, lp["ln"], eps))), 0.0
         for j in range(cfg.shared_attn_every):  # hybrid superblock
@@ -281,6 +300,13 @@ class Model:
             x = x + settle(ssm_mod.ssm_forward(mp, cfg, rmsnorm(x, mp["ln"], eps)))
         a = _attn_forward(shared, cfg, rmsnorm(x, shared["ln"], eps), positions)
         return x + settle(a), 0.0
+
+    def _residual(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``x + y`` in a training block: ``y`` settled, or with ``act_tp``
+        both placed by it, as the reference constrains the sum."""
+        if self.act_tp is None:
+            return x + settle(y)
+        return constrain(x, self.act_tp) + constrain(y, self.act_tp)
 
     def hidden(
         self,
@@ -345,7 +371,8 @@ class Model:
         caches = []
         for lp in self._blocks(params):
             if cfg.arch_type in BLOCK_TYPES:
-                a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions)
+                a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions,
+                                     self.kv_hint)
                 x = self._ffn_residual(lp, x + settle(a))
             elif cfg.arch_type == "ssm":
                 y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
@@ -360,7 +387,7 @@ class Model:
                     x = x + settle(y)
                 shared = params["shared_attn"]
                 a, c["attn"] = _attn_prefill(
-                    shared, cfg, rmsnorm(x, shared["ln"], eps), positions
+                    shared, cfg, rmsnorm(x, shared["ln"], eps), positions, self.kv_hint
                 )
                 x = x + settle(a)
             caches.append(c)

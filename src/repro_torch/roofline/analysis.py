@@ -7,9 +7,13 @@ device would do; nothing is allocated and nothing is launched:
 
   compute_term    = FLOPs            / H100 bf16 peak
   memory_term     = bytes            / H100 HBM rate
-  collective_term = collective bytes / NVLink rate
+  collective_term = collective bytes / the rate of the link they cross
 
-all per device, from ``repro_torch.roofline.hw``.  DTensor runs each
+all per device, from ``repro_torch.roofline.hw``.  The collective term
+prices each mesh axis's bytes at its own link: NVLink within a node,
+InfiniBand for a group over the "pod" axis, which spans nodes (the
+reference prices every byte at one ICI rate; one node's term is its
+bytes over NVLink, as before).  DTensor runs each
 operator on the local shards of rank 0, and those local operators (and the
 functional collectives that its redistributions issue) are what the
 counter sees, so every count is per device.  The conventions follow the
@@ -218,6 +222,13 @@ def booking_counter(t: torch.Tensor) -> Optional[StepCounter]:
     return mode if isinstance(mode, StepCounter) and mode.kernels_booked else None
 
 
+def link_bw(axis: str) -> float:
+    """The rate of the link a collective over mesh axis ``axis`` crosses:
+    InfiniBand for a group that spans nodes (the "pod" axis, alone or
+    flattened with others, as "pod_data"), NVLink within a node."""
+    return hw.IB_BW if "pod" in axis.split("_") else hw.NVLINK_BW
+
+
 @dataclasses.dataclass
 class RooflineReport:
     arch: str
@@ -228,6 +239,9 @@ class RooflineReport:
     bytes_per_device: float
     collective_bytes_per_device: Dict[str, int]
     model_flops: float  # 6·N·D (dense) / 6·N_active·D (MoE) for the step
+    # "kind/axis" -> bytes (StepCounter.collectives_by_axis), which the
+    # collective term prices link by link
+    collective_bytes_by_axis: Dict[str, int]
     peak_memory_per_device: Optional[float] = None
     output_bytes_per_device: Optional[float] = None
 
@@ -242,7 +256,13 @@ class RooflineReport:
 
     @property
     def collective_s(self) -> float:
-        return sum(self.collective_bytes_per_device.values()) / hw.NVLINK_BW
+        """Each axis's bytes over its link's rate (:func:`link_bw`), summed
+        by link first, so one node's term is its bytes over NVLink."""
+        by_link: Dict[float, int] = {}
+        for key, n in self.collective_bytes_by_axis.items():
+            bw = link_bw(key.split("/", 1)[1])
+            by_link[bw] = by_link.get(bw, 0) + n
+        return sum(n / bw for bw, n in by_link.items())
 
     @property
     def dominant(self) -> str:
@@ -271,6 +291,7 @@ class RooflineReport:
             "model_flops": self.model_flops,
             "peak_memory_per_device": self.peak_memory_per_device,
             "output_bytes_per_device": self.output_bytes_per_device,
+            "collective_bytes_by_axis": self.collective_bytes_by_axis,
             "compute_s": self.compute_s,
             "memory_s": self.memory_s,
             "collective_s": self.collective_s,
@@ -299,6 +320,7 @@ def load_report(path: str) -> RooflineReport:
         bytes_per_device=d["bytes_per_device"],
         collective_bytes_per_device=d["collective_bytes_per_device"],
         model_flops=d["model_flops"],
+        collective_bytes_by_axis=d["collective_bytes_by_axis"],
         peak_memory_per_device=d.get("peak_memory_per_device"),
         output_bytes_per_device=d.get("output_bytes_per_device"),
     )

@@ -28,6 +28,10 @@ PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 on the tensor cores
 HBM_BW = 3.35e12  # bytes/s
 HBM_BYTES = 80e9  # bytes
 NVLINK_BW = 900e9  # bytes/s to the other cards of the host, both ways together
+# bytes/s to the cards of another node: one ConnectX-7 NDR InfiniBand port of
+# 400 Gb/s a card (DGX/HGX H100 data sheet), 50 GB/s each way, both ways
+# together as NVLINK_BW is counted
+IB_BW = 2 * 400e9 / 8
 
 COMPUTE_SLICES = 7
 MEMORY_SLICES = 8

@@ -88,6 +88,27 @@ def test_scheduler_layers_import_without_torch_or_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_simulator_and_the_package_import_without_torch_or_jax():
+    """``import repro_torch`` and the closed-loop simulator (the re-optimize
+    driver, the loop, the scenario matrix) run where torch and jax cannot be
+    imported; the package's lazy exports reach the simulator there too."""
+    code = (
+        "import sys\n"
+        "for name in ('torch', 'jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None  # any import of these now raises ImportError\n"
+        "import repro_torch\n"
+        "assert 'repro_torch.sim' not in sys.modules, 'the package loaded the simulator'\n"
+        "import repro_torch.sim.reoptimize, repro_torch.sim.simulator, repro_torch.sim.scenarios\n"
+        "from repro_torch import ClusterSimulator, ReoptimizeDriver, SimConfig, replay_trace\n"
+        "assert ClusterSimulator is repro_torch.sim.simulator.ClusterSimulator\n"
+        "assert SimConfig().reoptimize_every_s == 1800.0\n"
+        "print('ok')\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_lazy_exports_still_reach_the_engine_and_the_model():
     from repro_torch import models, serving
     from repro_torch.models.transformer import Model
