@@ -8,10 +8,11 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: the four CUDA kernels compiled by nvcc from
-   ``src/repro_torch/kernels/csrc``, one nvcc each, all started together;
-   each library's count of tensor-core (HMMA) instructions from
-   ``cuobjdump -sass``, which must not be 0 for any of the four;
+2. build: the six CUDA libraries (the four forward kernels and the
+   backward kernels of flash attention and the SSD scan) compiled by nvcc
+   from ``src/repro_torch/kernels/csrc``, one nvcc each, all started
+   together; each library's count of tensor-core (HMMA) instructions from
+   ``cuobjdump -sass``, which must not be 0 for any of the six;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's,
    granite-20b's, phi4-mini-3.8b's (G = 3) and internvl2-1b's (G = 7), at
@@ -23,12 +24,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    to, and on the float32 CUDA cores); for the paged decode and the scan,
    each launch's device time (torch.profiler), and for the paged decode its
    time with one wave of splits; then, under grad, flash's dq/dk/dv and
-   the scan's five input gradients through the wrappers' autograd Function
-   (kernel forward, the plain version's gradient backward) against the
-   plain version's own autograd, at the training cell's shapes (flash
-   q (4,1024,32,128) over 8 KV heads in bf16, a float32 smoke shape and a
-   windowed one; the scan at mamba2-370m's (4,1024,32,64,128)), forward +
-   backward timed beside the plain version's and, for flash, SDPA's;
+   the scan's five input gradients through the wrappers' autograd
+   Functions (forward kernel, then one launch of the backward kernel)
+   against the plain version's own autograd, and each backward kernel
+   alone against its explicit plain backward on the same inputs (the
+   scan's with d(final) zero and not), at the training cell's shapes
+   (flash q (4,1024,32,128) over 8 KV heads in bf16, a float32 smoke shape
+   and a windowed one; the scan at mamba2-370m's (4,1024,32,64,128)),
+   forward + backward timed beside the plain version's autograd, SDPA's
+   and the earlier plain-gradient time (``was_ms``) and held to the
+   function's own work (its inputs, dY and its outputs and gradients moved
+   once; three times the forward's products), and the backward alone
+   beside the explicit plain backward and SDPA's backward call and held
+   to its ``work_bwd``;
 4. parity: the engine on the card (kernels) and on the CPU (plain
    versions) give identical tokens on the float32 smoke configs of
    qwen3-8b, zamba2-1.2b, granite-20b, phi4-mini-3.8b and llama3-405b
@@ -43,7 +51,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (qwen3-8b, granite-20b, mamba2-370m, zamba2-1.2b, deepseek-v3-671b,
    internvl2-1b through embeddings, qwen3-8b under a window of 8 over 32
    tokens; some with remat), per-step loss, ce, aux, mtp and grad_norm,
-   the launches each step implies and a grad_fn on every kernel output;
+   the launches each step implies (a backward launch a layer and step,
+   beside the forward's, which remat runs twice) and a grad_fn on every
+   kernel output;
 5. main paths: qwen3-8b (36 layers), mamba2-370m (48 layers), zamba2-1.2b
    (38 Mamba2 layers, 19 shared-attention calls), granite-20b (52 layers,
    on the paged and on the flat backend), phi4-mini-3.8b (32 layers),
@@ -68,9 +78,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. profiles: for qwen3-8b, granite-20b (flat) and deepseek-v2-236b,
    eight full decode steps timed on the host clock and eight more traced
    with torch.profiler (device-busy time by kernel family, idle share,
-   launches per step); for
+   launches per step, and each traced step's device-busy ms: the kernels
+   that start within its host range, each step ending with a synchronize;
+   it fails unless those ranges hold every traced kernel); for
    qwen3-8b and mamba2-370m, one admission of a 1024-token prompt, timed
-   and then traced the same way; one qwen3-8b training step split into
+   and then traced the same way; one qwen3-8b and one mamba2-370m
+   training step split into
    forward, backward and optimizer, then traced;
 7. dry run: three of the steps phase 6 timed (granite-20b's flat decode
    step of 8 slots, a qwen3-8b 1,024-token admission, the 8-layer qwen3-8b
@@ -133,8 +146,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``ClusterSimulator`` on ``h100_mig_rules()`` and phase 8's measured
    profile, over a replayed trace of phase 8's day rates for an hour, then
    its night rates for an hour, in 60 s bins, with
-   ``SimConfig(reoptimize_every_s=1800, latency_slo_ms=100)`` and the
-   reference's defaults otherwise: once under the ``none`` fault profile
+   ``SimConfig(reoptimize_every_s=1800, latency_slo_ms=100,
+   throughput_noise=sigma)`` and the reference's defaults otherwise, sigma
+   measured on the card in phase 6: the largest (p90 - p50) / p50 of a
+   traced decode step's device-busy ms over the profiled decode runs of
+   the seven one-card models (qwen3-8b, granite-20b), clipped to [0, 0.5].
+   It stands for the reference's serving-vs-profiling variance (Fig. 14:
+   each instance's rate drawn within sigma of its profile's) as the spread
+   of the card's own time for a decode step, which moves little between
+   runs of one tree, where a host-clock spread such as TPOT's moves with
+   the host's load; its digits still differ from run to run, and the
+   report bytes with them.  Sigma is printed with its source on every
+   [sim] line: once under the ``none`` fault profile
    and once under ``gpu_loss``, each on the fluid serving model.  Each
    [sim] line gives the per-service SLO satisfaction and mean attainment,
    the cards at the end and at the peak, the transitions and their
@@ -144,7 +167,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    twice, and the phase fails unless both runs give the same
    ``SimReport.to_json()`` bytes, every final partition is legal under
    ``h100_mig_rules()`` and every attainment is finite (attainment and card
-   counts are recorded, not gated).  It fails above 60 s of host time.
+   counts are recorded, not gated); a third run without the noise gives
+   the noiseless report's hash and attainment beside them.  It fails
+   above 60 s of host time.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -209,10 +234,29 @@ DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+SSM_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention.py:74"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:83"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:89"
 SSM_REPLACES = "src/repro/kernels/ssm_scan.py:80"
+# the backward kernels stand for the reference's jnp autodiff of its training
+# path (no Pallas kernel has a VJP): its causal attention and ssd_chunked
+FLASH_BWD_REPLACES = "src/repro/models/kernels_bridge.py:53"
+SSM_BWD_REPLACES = "src/repro/models/ssm.py:60"
+# forward + backward ms of the [grad] shapes on an H100 (700 W) when the
+# backward was the plain version's gradient recomputed, before the backward
+# kernels (PERF.md §6)
+WAS_MS = {"flash": 8.6756, "flash_window": 2.3816, "scan": 4.0175}
+
+
+def expected(ops, **counts) -> dict:
+    """A run's expected launch counts: ``counts`` by counter name, 0 for
+    every other counter ``ops`` keeps."""
+    names = ops.launches()
+    if set(counts) - set(names):
+        fail(f"no launch counter for {sorted(set(counts) - set(names))}")
+    return {k: counts.get(k, 0) for k in names}
 
 
 def fail(msg: str) -> None:
@@ -530,11 +574,22 @@ def fwd_bwd(torch, fn, nx):
     return run
 
 
-def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window):
-    """dq, dk, dv through the wrapper's autograd Function (the kernel
-    forward, the plain version's gradient backward) against the plain
-    version's own autograd, on the same inputs; forward + backward timed
-    beside the plain version's and SDPA's."""
+def count_bwd(ops, name, fn):
+    """``fn()``'s result and the backward launches it made of ``name``."""
+    before = ops.launches()[name]
+    out = fn()
+    return out, ops.launches()[name] - before
+
+
+def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window, was_ms=None):
+    """dq, dk, dv through the wrapper's autograd Function (the forward
+    kernel writing the log-sum-exp, then the backward kernel) against the
+    plain version's own autograd, on the same inputs, with one backward
+    launch; the backward kernel alone against the explicit plain backward
+    on the same q, k, v, out, lse and dO.  Forward + backward timed beside
+    the plain version's autograd and SDPA's (``was_ms``: the plain-gradient
+    recompute's time, WAS_MS), and the backward alone beside the explicit
+    plain backward and SDPA's backward call."""
     import torch.nn.functional as F
 
     name = str(dtype).replace("torch.", "")
@@ -556,14 +611,41 @@ def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window):
     q, k, v, w = sets[0]
     out = kernel(q, k, v)
     has_grad_fn = out.grad_fn is not None
-    got = torch.autograd.grad(out, (q, k, v), w)
+    got, n_bwd = count_bwd(ops, "flash_attention_bwd",
+                           lambda: torch.autograd.grad(out, (q, k, v), w))
     want_out = plain(q, k, v)
     want = torch.autograd.grad(want_out, (q, k, v), w)
     torch.cuda.synchronize()
     errs = {"out": rel_err(out, want_out)}
     errs.update({f"d{n}": rel_err(g, r) for n, g, r in zip("qkv", got, want)})
-    ok = has_grad_fn and max(errs.values()) <= TOL[name]
     del out, got, want_out, want
+
+    # the backward kernel alone, on the forward kernel's out and lse
+    def bwd_inputs(s):
+        qt, kt, vt, wt = (x.detach().transpose(1, 2) for x in s)
+        o = torch.empty_like(qt)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        fa_mod.launch(qt, kt, vt, o, scale, window, lse)
+        return qt, kt, vt, o, lse, wt
+
+    bwd_sets = [bwd_inputs(s) for s in sets]
+
+    def bwd_kernel(qt, kt, vt, o, lse, wt):
+        grads = [torch.empty_like(x) for x in (qt, kt, vt)]
+        fa_mod.launch_bwd(qt, kt, vt, o, lse, wt, *grads, scale, window)
+        return grads
+
+    def bwd_plain(*a):
+        return fa_mod.flash_attention_bwd_plain(*a, scale, window)
+
+    got_b, want_b = bwd_kernel(*bwd_sets[0]), bwd_plain(*bwd_sets[0])
+    torch.cuda.synchronize()
+    bwd_errs = {f"d{n}": rel_err(g, r) for n, g, r in zip("qkv", got_b, want_b)}
+    bwd_abs = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got_b, want_b))
+    del got_b, want_b
+    ok = (has_grad_fn and n_bwd == 1 and max(errs.values()) <= TOL[name]
+          and max(bwd_errs.values()) <= TOL[name])
+
     nx = rotating(sets)
     qi = torch.arange(S, device="cuda")[:, None]
     kj = torch.arange(S, device="cuda")[None, :]
@@ -580,27 +662,53 @@ def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window):
     ms = cuda_ms(torch, fwd_bwd(torch, kernel, nx), iters)
     plain_ms = cuda_ms(torch, fwd_bwd(torch, plain, nx), 3)
     library_ms = cuda_ms(torch, fwd_bwd(torch, sdpa, nx), iters)
-    # forward 4 and backward 8 multiply-add flops per (query, key) pair and
-    # head dim (Q·Kᵀ, P·V; dV, dP, dQ, dK): three times the forward's; q, k,
-    # v and dO read, O, dQ, dK, dV written: twice the forward's bytes
+    nb = rotating(bwd_sets)
+    bwd_ms = cuda_ms(torch, lambda: bwd_kernel(*nb()), iters)
+    bwd_per_launch = launch_ms(torch, lambda: bwd_kernel(*nb()))
+    bwd_plain_ms = cuda_ms(torch, lambda: bwd_plain(*nb()), 3)
+    # SDPA's backward alone: one autograd call on a kept graph
+    graphs = [(sdpa(*s[:3]), s) for s in sets]
+    ng = rotating(graphs)
+    bwd_library_ms = cuda_ms(torch, lambda: (lambda o, s: torch.autograd.grad(
+        o, s[:3], s[3], retain_graph=True))(*ng()), iters)
+    del graphs
+    # forward + backward, the function's own work: 4 and 8 multiply-add
+    # flops per (query, key) pair and head dim (q·kᵀ, p·v; dO·vᵀ, pᵀ·dO,
+    # dS·k, dSᵀ·q: the backward kernel's recompute of q·kᵀ is not counted);
+    # q, k, v and dO read, O, dQ, dK, dV written once: twice the forward's
+    # bytes.  The backward alone is held to work_bwd (its inputs include
+    # the output and the log-sum-exp, so q·kᵀ is part of its work)
     fwd_flops, fwd_bytes = fa_mod.work(B, S, H, KV, D, window, dbytes)
-    flops, nbytes = 3 * fwd_flops, 2 * fwd_bytes
-    b_ms, b_by = bound(nbytes, flops, name)
+    bwd_flops, bwd_bytes = fa_mod.work_bwd(B, S, H, KV, D, window, dbytes)
+    b_ms, b_by = bound(2 * fwd_bytes, 3 * fwd_flops, name)
+    bb_ms, bb_by = bound(bwd_bytes, bwd_flops, name)
     phase("grad", kernel="flash_attention", dtype=name, B=B, S=S, H=H, KV=KV, D=D,
-          window=window, grad_fn=has_grad_fn,
-          **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()}, tol=TOL[name], ok=ok,
-          fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
-          sdpa_fwd_bwd_ms=f"{library_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+          window=window, grad_fn=has_grad_fn, bwd_launches=n_bwd,
+          **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()},
+          **{f"bwd_err_{k}": f"{e:.3e}" for k, e in bwd_errs.items()}, tol=TOL[name], ok=ok,
+          fwd_bwd_ms=f"{ms:.4f}", was_ms=was_ms, plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+          sdpa_fwd_bwd_ms=f"{library_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          bwd_ms=f"{bwd_ms:.4f}", bwd_per_launch_ms=bwd_per_launch,
+          bwd_plain_ms=f"{bwd_plain_ms:.4f}", sdpa_bwd_ms=f"{bwd_library_ms:.4f}",
+          bwd_bound_ms=f"{bb_ms:.4f}", bwd_bound_by=bb_by)
     if not ok:
         fail(f"flash_attention gradient {name} S={S} window={window}: errors {errs}, "
-             f"grad_fn={has_grad_fn}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms)
+             f"backward kernel {bwd_errs}, grad_fn={has_grad_fn}, backward launches {n_bwd}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bwd=dict(max_abs_err=bwd_abs, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms,
+                         bound_by=bb_by, library_ms=bwd_library_ms))
 
 
-def check_scan_grad(torch, ops, ssm_mod, rng, B, S, H, P, N, L):
-    """dx, ddt, dA, dB, dC through the wrapper's autograd Function against
+def check_scan_grad(torch, ops, ssm_mod, rng, B, S, H, P, N, L, was_ms=None):
+    """dx, ddt, dA, dB, dC through the wrapper's autograd Function (the
+    forward kernel keeping its scratch, then the backward kernels) against
     the plain version's own autograd (the final state unused, as in
-    training); forward + backward timed beside the plain version's."""
+    training), with one backward launch; the backward kernels alone
+    against the explicit plain backward on the same inputs and entering
+    states, with d(final) zero and not.  Forward + backward timed beside
+    the plain version's autograd (``was_ms``: the plain-gradient
+    recompute's, WAS_MS), and the backward alone beside the explicit plain
+    one."""
     import torch.nn.functional as F
 
     gen = card_generator(torch, rng)
@@ -624,32 +732,73 @@ def check_scan_grad(torch, ops, ssm_mod, rng, B, S, H, P, N, L):
     *args, w = sets[0]
     y, final = kernel(*args)
     has_grad_fn = y.grad_fn is not None and final.grad_fn is not None
-    got = torch.autograd.grad(y, args, w)
+    got, n_bwd = count_bwd(ops, "ssm_scan_bwd", lambda: torch.autograd.grad(y, args, w))
     want_y, _ = plain(*args)
     want = torch.autograd.grad(want_y, args, w)
     torch.cuda.synchronize()
     errs = {"y": rel_err(y, want_y)}
     errs.update({f"d{n}": rel_err(g, r)
                  for n, g, r in zip(("x", "dt", "A", "B", "C"), got, want)})
-    ok = has_grad_fn and max(errs.values()) <= SCAN_TOL
     del y, final, got, want_y, want
+
+    # the backward kernels alone, on the forward kernel's scratch
+    def bwd_inputs(s):
+        x, dt, A, Bm, Cm, dy = (t.detach() for t in s)
+        scratch = ssm_mod.scratch(B, S, H, P, N, L, "cuda")
+        ssm_mod.launch(x, dt, A, Bm, Cm, L, torch.empty_like(x),
+                       torch.empty((B, H, P, N), device="cuda"), *scratch)
+        return (x, dt, A, Bm, Cm), scratch, dy
+
+    bwd_sets = [bwd_inputs(s) for s in sets]
+    bwd_errs, bwd_abs = {}, 0.0
+    inputs, scratch, dy = bwd_sets[0]
+    for final_grad in (None, randn(torch, (B, H, P, N), torch.float32, gen)):
+        got_b = ssm_mod.launch_bwd(*inputs, L, *scratch, dy, final_grad)
+        want_b = ssm_mod.ssm_scan_bwd_plain(*inputs, L, scratch[1], dy, final_grad)
+        torch.cuda.synchronize()
+        tag = "" if final_grad is None else "_final"
+        bwd_errs.update({f"d{n}{tag}": rel_err(g, r)
+                         for n, g, r in zip(("x", "dt", "A", "B", "C"), got_b, want_b)})
+        bwd_abs = max([bwd_abs] + [float((g - r).abs().max()) for g, r in zip(got_b, want_b)])
+        del got_b, want_b
+    ok = (has_grad_fn and n_bwd == 1 and max(errs.values()) <= SCAN_TOL
+          and max(bwd_errs.values()) <= SCAN_TOL)
+
     nx = rotating(sets)
     ms = cuda_ms(torch, fwd_bwd(torch, kernel, nx), 10)
     plain_ms = cuda_ms(torch, fwd_bwd(torch, plain, nx), 3)
-    # the backward's products are twice the forward's; dy read, and y, the
-    # final state and the five input gradients written, beside the inputs
+    nb = rotating(bwd_sets)
+    bwd_call = lambda: (lambda i, s, d: ssm_mod.launch_bwd(*i, L, *s, d, None))(*nb())  # noqa: E731
+    bwd_ms = cuda_ms(torch, bwd_call, 10)
+    bwd_per_launch = launch_ms(torch, bwd_call)
+    bwd_plain_ms = cuda_ms(torch, lambda: (lambda i, s, d: ssm_mod.ssm_scan_bwd_plain(
+        *i, L, s[1], d, None))(*nb()), 3)
+    # forward + backward, the function's own work: its inputs, dy and the
+    # gradients read or written once beside the forward's bytes, three
+    # times the forward's products; held to the tensor cores, where the
+    # products run, the float32 CUDA cores' bound beside it.  The backward
+    # alone is held to work_bwd (its inputs include the entering states)
     grad_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
     io_bytes = nbytes + 4 * B * S * H * P + grad_bytes
     b_ms, b_by = bound(io_bytes, 3 * flops, "tf32")
     cc_ms, cc_by = bound(io_bytes, 3 * flops, "float32")
+    bwd_flops, bwd_bytes = ssm_mod.work_bwd(B, S, H, P, N, L)
+    bb_ms, bb_by = bound(bwd_bytes, bwd_flops, "tf32")
     phase("grad", kernel="ssm_scan", dtype="float32", B=B, S=S, H=H, P=P, N=N, chunk=L,
-          grad_fn=has_grad_fn, **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()},
-          tol=SCAN_TOL, ok=ok, fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
-          library_ms=None, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-          cuda_core_bound_ms=f"{cc_ms:.4f}", cuda_core_bound_by=cc_by)
+          grad_fn=has_grad_fn, bwd_launches=n_bwd,
+          **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()},
+          **{f"bwd_err_{k}": f"{e:.3e}" for k, e in bwd_errs.items()},
+          tol=SCAN_TOL, ok=ok, fwd_bwd_ms=f"{ms:.4f}", was_ms=was_ms,
+          plain_fwd_bwd_ms=f"{plain_ms:.4f}", library_ms=None, bound_ms=f"{b_ms:.4f}",
+          bound_by=b_by, cuda_core_bound_ms=f"{cc_ms:.4f}", cuda_core_bound_by=cc_by,
+          bwd_ms=f"{bwd_ms:.4f}", bwd_per_launch_ms=bwd_per_launch,
+          bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_bound_ms=f"{bb_ms:.4f}", bwd_bound_by=bb_by)
     if not ok:
-        fail(f"ssm_scan gradient S={S}: errors {errs}, grad_fn={has_grad_fn}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms)
+        fail(f"ssm_scan gradient S={S}: errors {errs}, backward kernels {bwd_errs}, "
+             f"grad_fn={has_grad_fn}, backward launches {n_bwd}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bwd=dict(max_abs_err=bwd_abs, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb_ms,
+                         bound_by=bb_by, library_ms=None))
 
 
 # -- phase 4: the whole path on the card against the CPU --------------------------
@@ -703,9 +852,8 @@ def ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_varia
     got = ring_tokens(torch, model, tree_to(params_cpu, "cuda"), prompts, 12, "cuda")
     counts = ops.launches()
     gqa = cfg.attention_kind == "gqa"
-    expect = {"decode_attention": 12 * cfg.num_layers * gqa,
-              "flash_attention": cfg.num_layers * gqa,
-              "paged_decode_attention": 0, "ssm_scan": 0}
+    expect = expected(ops, decode_attention=12 * cfg.num_layers * gqa,
+                      flash_attention=cfg.num_layers * gqa)
     phase("parity", config=f"{cfg.name}-ring{cfg.sliding_window}", backend="ring",
           cpu_tokens=want, cuda_tokens=got, launches=json.dumps(counts))
     if got != want:
@@ -800,8 +948,11 @@ def train_parity(torch, ops, kernels_bridge, Model, tree_to, training, cfg, rema
     finally:
         undo()
     counts = ops.launches()
-    expect = {"decode_attention": 0, "flash_attention": steps * attn_layers(cfg, remat),
-              "paged_decode_attention": 0, "ssm_scan": steps * mamba_layers(cfg, remat)}
+    # one backward launch a layer and step, remat or not
+    expect = expected(ops, flash_attention=steps * attn_layers(cfg, remat),
+                      ssm_scan=steps * mamba_layers(cfg, remat),
+                      flash_attention_bwd=steps * attn_layers(cfg, False),
+                      ssm_scan_bwd=steps * mamba_layers(cfg, False))
     rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-6) for k in w} for g, w in zip(got, want)]
     ok = all(sorted(g) == sorted(w) for g, w in zip(got, want)) and all(
         max(r.values()) <= tol for r, tol in zip(rel, TRAIN_RTOL))
@@ -816,7 +967,7 @@ def train_parity(torch, ops, kernels_bridge, Model, tree_to, training, cfg, rema
         fail(f"{cfg.name} training: the card's metrics differ from the CPU's: {got} vs {want}")
     if counts != expect:
         fail(f"{cfg.name} training: launch counts {counts} != expected {expect}")
-    if record["missing"] or record["checked"] != sum(counts.values()):
+    if record["missing"] or record["checked"] != counts["flash_attention"] + counts["ssm_scan"]:
         fail(f"{cfg.name} training: kernel outputs under grad without a grad_fn: {record}")
 
 
@@ -852,8 +1003,7 @@ def ring_main(torch, ops, Model, long_context_variant, cfg, params, rng, window=
         torch.cuda.synchronize()
         decode_s = time.monotonic() - t0
     counts = ops.launches()
-    expect = {"decode_attention": steps * L, "flash_attention": L,
-              "paged_decode_attention": 0, "ssm_scan": 0}
+    expect = expected(ops, decode_attention=steps * L, flash_attention=L)
     want_pos = torch.arange(S - window, S, dtype=torch.int32, device="cuda")
     want_pos[:steps] = torch.arange(S, S + steps, dtype=torch.int32, device="cuda")
     slots_ok = bool((cache["layers"]["slot_pos"] == want_pos).all().item())
@@ -915,8 +1065,10 @@ def train_main(torch, ops, Model, flatten, training, cfg, seed, full=None):
         times.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
     counts = ops.launches()
-    expect = {"decode_attention": 0, "flash_attention": steps * attn_layers(cfg, False),
-              "paged_decode_attention": 0, "ssm_scan": steps * mamba_layers(cfg, False)}
+    expect = expected(ops, flash_attention=steps * attn_layers(cfg, False),
+                      ssm_scan=steps * mamba_layers(cfg, False),
+                      flash_attention_bwd=steps * attn_layers(cfg, False),
+                      ssm_scan_bwd=steps * mamba_layers(cfg, False))
     step_ms = float(np.median(times))
     share = train_flops(cfg, n_params, batch, seq) / (step_ms / 1e3 * PEAK_FLOPS["bfloat16"])
     finite = all(math.isfinite(x) for x in losses)
@@ -965,8 +1117,8 @@ def phase5_traffic(seed, name):
     return rng, rng.integers(128, 1025, size=REQUESTS)
 
 
-def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model, params,
-               seed, backend, expect_backend, expect_counts):
+def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model,
+               params, seed, backend, expect_backend, expect_counts):
     """Serve 16 requests of 128-1024 prompt tokens at full width on
     ``backend``; check the launch counts against ``expect_counts(admissions,
     steps)``; feed the measured throughput into ``measured_for(arch)``, a
@@ -1021,7 +1173,7 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
     counts = ops.launches()
     engine._prefill, engine._decode = orig_prefill, orig_decode
     bad = int(probe["bad"].item())
-    expect = expect_counts(probe["prefill"], engine.steps)
+    expect = expected(ops, **expect_counts(probe["prefill"], engine.steps))
     pct = lambda xs, p: float(np.percentile(xs, p)) if xs else float("nan")  # noqa: E731
     phase("serve", config=cfg.name, backend=engine.kv_backend, served=stats.served,
           requests=len(reqs), tokens=stats.tokens,
@@ -1591,26 +1743,51 @@ def sim_trace(sim, day_rates, night_rates):
                              for a in sorted(day_rates)}, bin_s=SIM_BIN_S)
 
 
-def sim_run(core, sim, prof, day_rates, night_rates, fault, seed):
+def busy_noise(profiled):
+    """The closed loop's serving-vs-profiling variance from phase 6's
+    traces: the largest (p90 - p50) / p50 of a traced decode step's
+    device-busy ms over the one-card models' profiled decode runs
+    (``profiled``: (config, backend, each step's busy ms) tuples), clipped
+    to [0, 0.5].  Returns (sigma, its source)."""
+    spreads = []
+    for name, backend, steps in profiled:
+        p50, p90 = np.percentile(steps, 50), np.percentile(steps, 90)
+        if p50 > 0:
+            spreads.append((float((p90 - p50) / p50), f"{name}/{backend}"))
+    if not spreads:
+        fail("sim: phase 6 traced no decode step to take the throughput noise from")
+    spread, source = max(spreads)
+    return (min(0.5, max(0.0, spread)),
+            f"phase6 decode-step device-busy (p90-p50)/p50 of {source}")
+
+
+def sim_run(core, sim, prof, day_rates, night_rates, fault, seed, noise=0.0):
     """One closed loop of the day-then-night trace on ``prof`` over
-    ``h100_mig_rules()``; returns (the simulator, its report)."""
+    ``h100_mig_rules()``, each instance's throughput drawn within ``noise``
+    of its profile's (``SimConfig.throughput_noise``); returns (the
+    simulator, its report)."""
     cfg = sim.SimConfig(reoptimize_every_s=SIM_REOPTIMIZE_S, latency_slo_ms=PLAN_SLO_MS,
-                        seed=seed, fault_profile=fault)
+                        seed=seed, fault_profile=fault, throughput_noise=noise)
     s = sim.ClusterSimulator(core.h100_mig_rules(), prof,
                              sim_trace(sim, day_rates, night_rates), cfg)
     return s, s.run()
 
 
-def sim_phase(core, sim, plan, seed) -> None:
+def sim_phase(core, sim, plan, seed, noise=0.0, noise_source="none") -> None:
     """Phase 10: the paper's closed loop on phase 8's measured profile and
-    day and night rates, under each of SIM_FAULTS, each run twice."""
+    day and night rates, with throughput noise ``noise`` (phase 6's
+    measured decode-step spread, :func:`busy_noise`), under each of SIM_FAULTS,
+    each run twice."""
     prof, day, night = plan["profile"], plan["day_rates"], plan["night_rates"]
+    sha = lambda r: hashlib.sha256(r.to_json().encode()).hexdigest()[:16]  # noqa: E731
     for fault in SIM_FAULTS:
         t0 = time.monotonic()
-        s, rep = sim_run(core, sim, prof, day, night, fault, seed)
+        s, rep = sim_run(core, sim, prof, day, night, fault, seed, noise)
         host_s = time.monotonic() - t0
-        again = sim_run(core, sim, prof, day, night, fault, seed)[1]
+        again = sim_run(core, sim, prof, day, night, fault, seed, noise)[1]
         same = again.to_json() == rep.to_json()
+        # the same loop without the measured noise: what the card's input moved
+        noiseless = sim_run(core, sim, prof, day, night, fault, seed)[1]
         sat = {a: rep.slo_satisfaction(a) for a in rep.services}
         att = {a: rep.mean_attainment(a) for a in rep.services}
         peak = max([rep.final_gpus] + [n for t in rep.transitions
@@ -1628,13 +1805,16 @@ def sim_phase(core, sim, plan, seed) -> None:
             extra = dict(faults=len(rep.faults), availability=f"{rep.availability():.4f}",
                          recovery_s="none" if rec is None else f"{rec:.1f}")
         phase("sim", fault=fault, serving_model=s.config.serving_model,
+              throughput_noise=f"{noise:.4f}", noise_source=json.dumps(noise_source),
               slo_satisfaction=json.dumps({a: round(v, 4) for a, v in sat.items()}),
-              mean_attainment=json.dumps({a: round(v, 4) for a, v in att.items()}),
+              mean_attainment=json.dumps({a: round(v, 6) for a, v in att.items()}),
               gpus_final=rep.final_gpus, gpus_peak=peak, as_is=as_is,
               transitions=len(rep.transitions), reoptimize_checks=rep.reoptimize_checks,
               makespan_s=json.dumps([round(t.parallel_seconds, 1) for t in rep.transitions]),
               transparent=rep.transparent, **extra, illegal=len(bad), same_bytes=same,
-              report_sha256=hashlib.sha256(rep.to_json().encode()).hexdigest()[:16],
+              report_sha256=sha(rep), noiseless_sha256=sha(noiseless),
+              noiseless_mean_attainment=json.dumps(
+                  {a: round(noiseless.mean_attainment(a), 6) for a in noiseless.services}),
               host_s=f"{host_s:.2f}")
         if not same:
             fail(f"sim {fault}: a second run with seed {seed} gave other report bytes")
@@ -1757,13 +1937,13 @@ def main() -> None:
     grad_rng = np.random.default_rng([args.seed, 3])
     results["flash_grad"] = check_flash_grad(torch, ops, fa_mod, torch.bfloat16, grad_rng,
                                              4, 1024, qwen.num_heads, qwen.num_kv_heads,
-                                             qwen.head_dim, None)
+                                             qwen.head_dim, None, WAS_MS["flash"])
     check_flash_grad(torch, ops, fa_mod, torch.float32, grad_rng, 2, 64, 4, 2, 32, None)
     check_flash_grad(torch, ops, fa_mod, torch.bfloat16, grad_rng, 1, 1024, qwen.num_heads,
-                     qwen.num_kv_heads, qwen.head_dim, 256)
+                     qwen.num_kv_heads, qwen.head_dim, 256, WAS_MS["flash_window"])
     results["scan_grad"] = check_scan_grad(torch, ops, ssm_mod, grad_rng, 4, 1024,
                                            mamba.ssm_heads, mamba.ssm_head_dim,
-                                           mamba.ssm_state, mamba.ssm_chunk)
+                                           mamba.ssm_state, mamba.ssm_chunk, WAS_MS["scan"])
 
     # 4. whole-path parity: the card's kernels against the CPU's plain path ----
     # the deepseek-v2 smoke config with GQA in place of MLA: MoE blocks
@@ -1822,6 +2002,7 @@ def main() -> None:
 
     # 5. main paths at full width, each followed by its profile (6) -----------------
     observed = []  # every run's §8.3 observation, for phase 8's plan
+    decode_busy = []  # phase 6's traced decode steps, for phase 10's throughput noise
     serve = (torch, ops, Engine, Request, run_closed_loop,
              recording_profiles(MeasuredProfile, h100_arch_profiles, observed))
     counts = []
@@ -1833,7 +2014,7 @@ def main() -> None:
                                "paged_decode_attention": steps * qwen.num_layers,
                                "ssm_scan": 0})
     counts.append(c)
-    profile_decode(torch, engine, qwen, rng, Request)
+    profile_decode(torch, engine, qwen, rng, Request, decode_busy=decode_busy)
     busy = {"admit": profile_prefill(
         torch, engine, qwen, rng, Request,
         {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
@@ -1881,7 +2062,8 @@ def main() -> None:
         lambda admits, steps: {"decode_attention": steps * L, "flash_attention": admits * L,
                                "paged_decode_attention": 0, "ssm_scan": 0})
     counts.append(c)
-    busy["decode"] = profile_decode(torch, engine, granite, rng, Request)
+    busy["decode"] = profile_decode(torch, engine, granite, rng, Request,
+                                    decode_busy=decode_busy)
     del engine
     torch.cuda.empty_cache()
     counts.append(ring_main(torch, ops, Model, long_context_variant, granite, params, rng))
@@ -1934,9 +2116,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("memory", before=f"training {mamba.name}",
           allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
-    *_, c = train_main(torch, ops, Model, flatten, training, mamba, args.seed)
+    model, params, state, c = train_main(torch, ops, Model, flatten, training, mamba,
+                                         args.seed)
     counts.append(c)
-    del _
+    profile_train(torch, training, flatten, unflatten, model, params, state, args.seed,
+                  SSM_TRAIN_FAMILIES)
+    del model, params, state
     torch.cuda.empty_cache()
 
     # 7. the dry run against the card's measured steps; expert parallelism --------
@@ -1964,7 +2149,9 @@ def main() -> None:
 
     # 10. the closed-loop simulator on phase 8's measurements (host only) -----------
     t0 = time.monotonic()
-    sim_phase(core, sim, plan, args.seed)
+    noise, noise_source = busy_noise([r for r in decode_busy if r[0] in
+                                      {get_config(a).name for a in PLAN_ARCHS}])
+    sim_phase(core, sim, plan, args.seed, noise, noise_source)
     sim_s = time.monotonic() - t0
     phase("sim", host_seconds=f"{sim_s:.2f}", budget_s=SIM_BUDGET_S)
     if sim_s > SIM_BUDGET_S:
@@ -1985,6 +2172,12 @@ def main() -> None:
              **results[("paged", torch.bfloat16)]),
         dict(name="ssm_scan", route="cuda", source=SSM_SOURCE, replaces=SSM_REPLACES,
              launches=launches["ssm_scan"], **results[("ssm", mamba.name, 1024)]),
+        dict(name="flash_attention_bwd", route="cuda", source=FLASH_BWD_SOURCE,
+             replaces=FLASH_BWD_REPLACES, launches=launches["flash_attention_bwd"],
+             **results["flash_grad"]["bwd"]),
+        dict(name="ssm_scan_bwd", route="cuda", source=SSM_BWD_SOURCE,
+             replaces=SSM_BWD_REPLACES, launches=launches["ssm_scan_bwd"],
+             **results["scan_grad"]["bwd"]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1998,7 +2191,9 @@ def kernel_families(events, families):
     Returns (times, kernel count)."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]  # not the ops
+    # the kernels: not the ops, nor the device side of a record_function range
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     out = {f: 0.0 for f in families}
     out["other"] = 0.0
     for e in kernels:
@@ -2018,12 +2213,14 @@ DECODE_FAMILIES = {"decode_attention": ("decode_split", "decode_merge_kernel"),
 
 
 def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
-                   steps: int = 8) -> float:
+                   steps: int = 8, decode_busy=None) -> float:
     """Fill every slot, time ``steps`` decode steps on the host clock, then
     trace as many more with torch.profiler: device time by kernel family
     (``families`` as kernel_families takes them), the device's idle share
-    of the untraced step time, and the top rows of the profiler's table."""
-    from torch.profiler import ProfilerActivity, profile
+    of the untraced step time, each traced step's device-busy ms
+    (:func:`step_busy`; appended to ``decode_busy`` as (config, backend,
+    the list) when given), and the top rows of the profiler's table."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for i in range(engine.batch):
         L = int(rng.integers(128, 1025))
@@ -2037,21 +2234,53 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
+        for i in range(steps):
+            with record_function(f"{STEP_LABEL}{i}"):
+                engine.step()
+                torch.cuda.synchronize()
     events = prof.key_averages()
     families, n_kernels = kernel_families(events, families)
     busy_ms = sum(families.values()) / steps / 1e3
+    per_step, cover = step_busy(prof.events())
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",
           device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.3f}",
           **{f"{k}_ms_per_step": f"{v / steps / 1e3:.3f}" for k, v in families.items()},
-          kernels_per_step=n_kernels // steps)
+          kernels_per_step=n_kernels // steps,
+          step_busy_ms=json.dumps([round(x, 4) for x in per_step]),
+          step_ranges_cover=f"{cover:.4f}")
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    if len(per_step) != steps or cover < STEP_COVER:
+        fail(f"{cfg.name}: {len(per_step)} traced step ranges hold {cover:.4f} of the "
+             f"traced kernel time (need {steps} and {STEP_COVER})")
+    if decode_busy is not None:
+        decode_busy.append((cfg.name, engine.kv_backend, per_step))
     while engine.num_live:
         engine.step()
     return busy_ms
+
+
+# the traced decode steps' profiler ranges, and the least share of the traced
+# kernel time they must hold (the rest would start outside every step)
+STEP_LABEL = "chip_smoke_decode_step_"
+STEP_COVER = 0.999
+
+
+def step_busy(events):
+    """Each traced step's device-busy ms (the kernels that start within the
+    host range of its ``STEP_LABEL`` record, which ends after a
+    synchronize, so its kernels have run), in order, and the share of all
+    traced kernel time the ranges hold."""
+    from torch.autograd import DeviceType
+
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CPU and e.name.startswith(STEP_LABEL))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    per_step = [sum(k.self_device_time_total for k in kernels if a <= k.time_range.start < b)
+                / 1e3 for a, b in ranges]
+    total = sum(k.self_device_time_total for k in kernels) / 1e3
+    return per_step, (sum(per_step) / total if total > 0 else 0.0)
 
 
 def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -> float:
@@ -2086,17 +2315,24 @@ def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -
 
 
 TRAIN_FAMILIES = {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
+                  "flash_attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel", "delta_kernel",
+                                          "dkdv_f32_kernel", "dq_f32_kernel"),
                   "attn_softmax": ("softmax",), "matmul": MATMUL_NAMES}
+# the scan's backward first: its first launch is chunk_state_kernel<true>
+SSM_TRAIN_FAMILIES = {"ssm_scan_bwd": ("chunk_state_kernel<true>", "state_pass_bwd", "chunk_bwd",
+                                       "head_sum", "::dbc_kernel(", "::da_kernel("),
+                      "ssm_scan": ("chunk_cb", "chunk_state", "state_pass", "chunk_scan"),
+                      "matmul": MATMUL_NAMES}
 
 
 def profile_train(torch, training, flatten, unflatten, model, params, state, seed,
                   families=TRAIN_FAMILIES) -> float:
     """One train step split by CUDA events into its forward (the loss),
-    backward (autograd, the plain attention recompute included) and
-    optimizer (the AdamW leaf loop), then one more step timed on the host
-    clock and one traced with torch.profiler: device time by kernel family
-    (the softmax kernels are the plain attention recompute's, as nothing
-    else in a dense step takes a softmax), the idle share, kernels."""
+    backward (autograd, flash's backward kernel included) and optimizer
+    (the AdamW leaf loop), then one more step timed on the host clock and
+    one traced with torch.profiler: device time by kernel family (flash's
+    forward and backward kernels; softmax is the cross-entropy's now that
+    no attention is recomputed in plain torch), the idle share, kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     data = training.data

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("decode_attention", "flash_attention", "paged_attention", "ssm_scan")
+KERNELS = ("decode_attention", "flash_attention", "paged_attention", "ssm_scan",
+           "flash_attention_bwd", "ssm_scan_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -133,13 +134,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p] * 8 + [i] * 8 + [i64] * 6 + [f, p]
     elif name == "flash_attention":
         fn = lib.repro_flash_attention
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, f, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, f, i, p, p]
+    elif name == "flash_attention_bwd":
+        fn = lib.repro_flash_attention_bwd
+        fn.argtypes = [p] * 10 + [i] * 6 + [p, f, i, p]
     elif name == "paged_attention":
         fn = lib.repro_paged_decode_attention
         fn.argtypes = [p] * 9 + [i] * 9 + [i64, i64, f, p]
     elif name == "ssm_scan":
         fn = lib.repro_ssm_scan
         fn.argtypes = [p] * 10 + [i] * 7 + [p, i64, p]
+    elif name == "ssm_scan_bwd":
+        fn = lib.repro_ssm_scan_bwd
+        fn.argtypes = [p] * 22 + [i] * 7 + [p, i64, p]
     else:
         raise ValueError(f"unknown kernel {name!r}")
     fn.restype = ctypes.c_int
@@ -162,6 +169,12 @@ def rows_aligned(t: torch.Tensor, nbytes: int) -> bool:
     return t.data_ptr() % nbytes == 0 and all(
         (t.stride(d) * size) % nbytes == 0 for d in range(t.dim() - 1)
     )
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy of it in fresh storage where one of its
+    last-axis rows does not start on a 16-byte boundary."""
+    return t if rows_aligned(t, 16) else t.clone(memory_format=torch.contiguous_format)
 
 
 def strides_arg(tensors: List[torch.Tensor], dims) -> ctypes.Array:

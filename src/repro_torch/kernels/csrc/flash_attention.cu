@@ -55,7 +55,10 @@
 // Both read q/k/v/o through the strides the wrapper passes, so the model's
 // (B, S, H, D) layout is read in place; any S works (the ragged tail is
 // masked); masking uses -1e30 as the JAX code does, and l is clamped at
-// 1e-30 before the final division.
+// 1e-30 before the final division.  Under training both also write each
+// query row's log-sum-exp, m + log(l) (natural log), into a float32
+// (B, H, S) array for the backward (flash_attention_bwd.cu); serving
+// passes null and writes nothing more.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -83,7 +86,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int64_t k_sb, int64_t k_ss, int64_t k_sh,
                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
                        int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                       float scale, int window) {
+                       float scale, int window, float* __restrict__ lse) {
   constexpr int C = kCols<D>;  // output columns per lane (common.cuh)
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][D]
@@ -207,6 +210,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q_start + warp * kRows + i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<int64_t>(b) * gridDim.y + h) * S + qi] = m[i] + logf(denom);
     T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
     for (int c = 0; c < C; ++c)
@@ -216,7 +221,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int H, int KV, const int64_t* st, float scale, int window,
+                   int H, int KV, const int64_t* st, float scale, int window, float* lse,
                    cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   const size_t smem = flash_smem_bytes<D>();
@@ -226,7 +231,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, H / KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale, window);
+      st[7], st[8], st[9], st[10], st[11], scale, window, lse);
   return cudaGetLastError();
 }
 
@@ -249,7 +254,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                 float scale_log2, int window) {
+                 float scale_log2, int window, float* __restrict__ lse) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = kLd<D>;
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -345,6 +350,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const float denom = fmaxf(quad_sum(l[r]), 1e-30f);  // every lane: shuffles
     const int qi = row0 + g + 8 * r;
     if (qi >= S) continue;
+    if (lse != nullptr && t4 == 0)  // m is in log2 units: scores carry log2(e)
+      lse[(static_cast<int64_t>(b) * gridDim.x + h) * S + qi] = (m[r] + log2f(denom)) * kLn2;
     bf16* orow = o + b * o_sb + qi * o_ss + h * o_sh + 2 * t4;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb)
@@ -355,7 +362,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int H, int KV, const int64_t* st, float scale, int window,
+                       int H, int KV, const int64_t* st, float scale, int window, float* lse,
                        cudaStream_t stream) {
   auto kernel = flash_mma_kernel<D>;
   const size_t smem = flash_mma_smem_bytes<D>();
@@ -366,18 +373,18 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H / KV, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale * kLog2e, window);
+      scale * kLog2e, window, lse);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v, void* o, int B,
                          int S, int H, int KV, const int64_t* st, float scale, int window,
-                         cudaStream_t stream) {
+                         float* lse, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_mma<16>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
-    case 32: return launch_mma<32>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
-    case 64: return launch_mma<64>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
-    case 128: return launch_mma<128>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
+    case 16: return launch_mma<16>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 32: return launch_mma<32>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 64: return launch_mma<64>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 128: return launch_mma<128>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -385,12 +392,12 @@ cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v, voi
 template <typename T>
 cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KV, const int64_t* st, float scale,
-                         int window, cudaStream_t stream) {
+                         int window, float* lse, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, st, scale, window, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -401,16 +408,19 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 // q, k, v, o in that order; the head_dim axis must be contiguous, k and v
 // 16-byte aligned with strides that keep every row 16-byte aligned, and o's
 // rows 4-byte aligned (the bf16 kernel stores pairs).
-// window <= 0 means no sliding window.  Returns cudaGetLastError().
+// window <= 0 means no sliding window.  lse: null, or a contiguous float32
+// (B, H, S) array that receives each query row's log-sum-exp.  Returns
+// cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, int dtype, int B, int S, int H, int KV,
                                      int D, const int64_t* strides, float scale,
-                                     int window, void* stream) {
+                                     int window, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kFloat32)
-    return dispatch_dim<float>(D, q, k, v, o, B, S, H, KV, strides, scale, window, s);
+    return dispatch_dim<float>(D, q, k, v, o, B, S, H, KV, strides, scale, window, l, s);
   if (dtype == kBFloat16)
-    return dispatch_mma(D, q, k, v, o, B, S, H, KV, strides, scale, window, s);
+    return dispatch_mma(D, q, k, v, o, B, S, H, KV, strides, scale, window, l, s);
   return cudaErrorInvalidValue;
 }

@@ -5,9 +5,10 @@ run there).  A tensor on a CUDA device goes to the kernel, which is built
 at first use; if it cannot run, the wrapper raises.  No path falls back to
 the plain version on a card.  Any other device raises.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches`` (CPU
-calls are not counted), so a run can show that its main path went through
-the kernels: set the counts to 0 with :func:`reset_launches`, run, read.
+Each wrapper counts its kernel launches in :data:`LAUNCHES`, by its own
+name (CPU calls are not counted), so a run can show that its main path
+went through the kernels: set the counts to 0 with :func:`reset_launches`,
+run, read :func:`launches`.
 
 The dry run (:mod:`repro_torch.launch.dryrun`) takes a third route for
 fake tensors (``FakeTensorMode``): a fake CUDA tensor, or a fake one owned
@@ -21,15 +22,24 @@ other sharding is gathered first.
 
 Training reaches two of the kernels, flash attention and the SSD scan.
 When grad mode is on and an input requires grad, their wrappers on a card
-go through :class:`PlainGradient`: the forward is the kernel, exactly as
-without grad, and the backward is the gradient of the kernel's plain
-version, recomputed from the saved inputs (the reference has no backward
-kernel either: its training differentiates its jnp path).  Without grad
-they launch the kernel directly.  On the CPU the plain versions are
-differentiable as they stand.  The two decode kernels have no gradient,
-and their wrappers raise under grad rather than return an output that
-autograd cannot differentiate.  Under activation checkpointing the
-forward runs twice, and so counts two launches.
+go through :class:`FlashAttentionFn` and :class:`SsmScanFn` with the
+kernels' halves: the forward kernel, which under grad also keeps what the
+backward needs (flash's row log-sum-exp; the scan's scratch: C·Bᵀ, the
+entering states, the decay exponents), and a backward kernel
+(``csrc/flash_attention_bwd.cu``, ``csrc/ssm_scan_bwd.cu``), counted as
+``flash_attention_bwd`` and ``ssm_scan_bwd``.  The JAX package has no
+backward kernel: its training differentiates its jnp path, whose
+gradients these compute.  On the dry run's fake route the Functions get
+halves that book the forward's ``work`` and the backward's ``work_bwd``
+and launch nothing.  Without grad the wrappers launch the forward kernel
+directly.  On the CPU the plain versions are differentiable as they
+stand, and the wrappers never build a Function; the CPU tests give the
+Functions the plain halves (the plain forward and the explicit plain
+backward: ``flash_attention_bwd_plain``, ``ssm_scan_bwd_plain``) and hold
+them to autograd.  The two decode kernels have no gradient, and their
+wrappers raise under grad rather than return an output that autograd
+cannot differentiate.  Under activation checkpointing the forward runs
+twice, and so counts two launches (the backward one).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _paged
@@ -153,34 +164,82 @@ def _refuse_grad(what: str, *inputs: torch.Tensor) -> None:
         raise RuntimeError(f"{what} has no gradient: call it under torch.no_grad()")
 
 
-class PlainGradient(torch.autograd.Function):
-    """``kernel(*inputs)`` forward, the gradient of ``plain(*inputs)``
-    backward.  ``kernel`` and ``plain`` compute one function of the tensor
-    ``inputs`` (one output or a tuple); only the inputs are saved, and the
-    backward recomputes ``plain`` on them under grad, one call at a time.
-    Outputs that the loss does not reach (the scan's final state in
-    training) get no gradient and cost nothing."""
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention in model layout, q (B, S, H, D), k/v (B, S, KV, D),
+    with an explicit backward.  ``halves`` is a route's (forward, backward)
+    on (B, H, S, D) views: ``forward(q, k, v, scale, window) -> (out,
+    lse)`` and ``backward(q, k, v, out, lse, dout, scale, window) -> (dq,
+    dk, dv)``; the wrapper passes :data:`FLASH_KERNELS` on a card and
+    :data:`FLASH_FAKE` in the dry run.  Saves q, k, v, the output and the
+    log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, kernel: Callable, plain: Callable, *inputs: torch.Tensor):
-        ctx.plain = plain
+    def forward(ctx, halves, q, k, v, window: Optional[int], scale: float):
+        ctx.backward_half, ctx.window, ctx.scale = halves[1], window, scale
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*inputs)
-        return kernel(*inputs)
+        out, lse = halves[0](*(x.transpose(1, 2) for x in (q, k, v)), scale, window)
+        out = out.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        inputs = [x.detach().requires_grad_(need)
-                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
-        with torch.enable_grad():
-            outs = ctx.plain(*inputs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        wanted = [x for x in inputs if x.requires_grad]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
-                                       allow_unused=True) if pairs and wanted else ())
-        return (None, None) + tuple(next(got, None) if x.requires_grad else None
-                                    for x in inputs)
+    def backward(ctx, dout):
+        if dout is None:
+            return (None,) * 6
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = ctx.backward_half(*(x.transpose(1, 2) for x in (q, k, v, out)), lse,
+                                  dout.transpose(1, 2), ctx.scale, ctx.window)
+        return (None,) + tuple(g.transpose(1, 2) for g in grads) + (None, None)
+
+
+def _model_layout(B: int, S: int, H: int, D: int, like: torch.Tensor) -> torch.Tensor:
+    """A fresh (B, S, H, D) tensor of ``like``'s dtype and device, as a
+    (B, H, S, D) view."""
+    return torch.empty((B, S, H, D), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def _flash_kernel(q, k, v, scale, window, with_lse=True):
+    """The forward kernel on (B, H, S, D) views, its output in model layout
+    underneath; (out, the row log-sum-exp or None)."""
+    B, H, S, D = q.shape
+    out = _model_layout(B, S, H, D, q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    _fa.launch(q, k, v, out, scale, window, lse)
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def _flash_kernel_bwd(q, k, v, out, lse, dout, scale, window):
+    """The backward kernel on (B, H, S, D) views; (dq, dk, dv) in model
+    layout underneath."""
+    # the backward reads every row as 16-byte chunks (an upstream gradient
+    # may also come expanded, with stride 0: made whole in model layout)
+    dout = dout.transpose(1, 2).contiguous().transpose(1, 2)
+    q, k, v, out, dout = (_build.aligned16(x) for x in (q, k, v, out, dout))
+    grads = tuple(_model_layout(x.shape[0], x.shape[2], x.shape[1], x.shape[3], x)
+                  for x in (q, k, v))
+    _fa.launch_bwd(q, k, v, out, lse, dout, *grads, scale, window)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+def _flash_fake(q, k, v, scale, window):
+    """The dry run's forward: books the kernel's work; an empty output."""
+    B, H, S, D = q.shape
+    _book(q, "flash_attention", _fa.work(B, S, H, k.shape[1], D, window, q.element_size()))
+    return _model_layout(B, S, H, D, q), None
+
+
+def _flash_fake_bwd(q, k, v, out, lse, dout, scale, window):
+    """The dry run's backward: books the backward kernel's work."""
+    B, H, S, D = q.shape
+    _book(q, "flash_attention_bwd",
+          _fa.work_bwd(B, S, H, k.shape[1], D, window, q.element_size()))
+    return tuple(torch.empty_like(x) for x in (q, k, v))
+
+
+FLASH_KERNELS = (_flash_kernel, _flash_kernel_bwd)
+FLASH_FAKE = (_flash_fake, _flash_fake_bwd)
 
 
 def flash_attention(
@@ -195,30 +254,15 @@ def flash_attention(
     if _is_dtensor(q):
         return on_shards(lambda q, k, v: flash_attention(q, k, v, window, scale),
                           (q, k, v), ((0, 2),) * 3, ((0, 2),))
-
-    def plain(q, k, v):
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # views, no copy
-        return _fa.flash_attention_plain(qt, kt, vt, scale, window).transpose(1, 2)
-
-    def kernel(q, k, v):
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _fa.launch(*(x.transpose(1, 2) for x in (q, k, v, out)), scale, window)
-        flash_attention.launches += 1
-        return out
-
-    def fake(q, k, v):
-        B, S, H, D = q.shape
-        _book(q, "flash_attention",
-              _fa.work(B, S, H, k.shape[2], D, window, q.element_size()))
-        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
-
     route = _route(q, "flash_attention")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # bhsd views, no copy
     if route == "plain":
-        return plain(q, k, v)
-    call = fake if route == "fake" else kernel
+        return _fa.flash_attention_plain(qt, kt, vt, scale, window).transpose(1, 2)
+    if route == "fake":
+        return FlashAttentionFn.apply(FLASH_FAKE, q, k, v, window, scale)
     if _wants_grad(q, k, v):
-        return PlainGradient.apply(call, plain, q, k, v)
-    return call(q, k, v)
+        return FlashAttentionFn.apply(FLASH_KERNELS, q, k, v, window, scale)
+    return _flash_kernel(qt, kt, vt, scale, window, with_lse=False)[0].transpose(1, 2)
 
 
 def decode_attention(
@@ -245,7 +289,7 @@ def decode_attention(
         return _dec.decode_attention_plain(q3, k, v, valid, scale)[:, None]
     out = torch.empty(q3.shape, dtype=q.dtype, device=q.device)
     _dec.launch(q3, k, v, valid, out, scale)
-    decode_attention.launches += 1
+    LAUNCHES["decode_attention"] += 1
     return out[:, None]
 
 
@@ -280,8 +324,76 @@ def paged_decode_attention(
         )[:, None]
     out = torch.empty(q3.shape, dtype=q.dtype, device=q.device)
     _paged.launch(q3, pool_k, pool_v, page_tables, lengths, out, scale)
-    paged_decode_attention.launches += 1
+    LAUNCHES["paged_decode_attention"] += 1
     return out[:, None]
+
+
+class SsmScanFn(torch.autograd.Function):
+    """The SSD scan with an explicit backward; returns (y, final state).
+    ``halves`` is a route's (forward, backward): ``forward(x, dt, A, B_,
+    C_, chunk) -> (y, final, saved)`` and ``backward(x, dt, A, B_, C_,
+    chunk, *saved, dy, dfinal) -> (dx, ddt, dA, dB_, dC_)``, ``dfinal``
+    None where the loss does not reach the final state; the wrapper passes
+    :data:`SCAN_KERNELS` on a card (``saved``: the forward's scratch, C·Bᵀ,
+    the entering states, the decay exponents) and :data:`SCAN_FAKE` in the
+    dry run.  Saves the inputs and ``saved``."""
+
+    @staticmethod
+    def forward(ctx, halves, x, dt, A, B_, C_, chunk: int):
+        ctx.backward_half, ctx.chunk = halves[1], chunk
+        ctx.set_materialize_grads(False)
+        y, final, saved = halves[0](x, dt, A, B_, C_, chunk)
+        ctx.save_for_backward(x, dt, A, B_, C_, *saved)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        if dy is None and dfinal is None:
+            return (None,) * 7
+        x, dt, A, B_, C_, *saved = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy
+        grads = ctx.backward_half(x, dt, A, B_, C_, ctx.chunk, *saved, dy, dfinal)
+        return (None,) + tuple(grads) + (None,)
+
+
+def _scan_kernel(x, dt, A, B_, C_, chunk):
+    """The forward kernel: (y, final, its scratch)."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    scratch = _ssm.scratch(Bb, S, H, P, N, chunk, x.device)
+    _ssm.launch(x, dt, A, B_, C_, chunk, y, final, *scratch)
+    LAUNCHES["ssm_scan"] += 1
+    return y, final, scratch
+
+
+def _scan_kernel_bwd(x, dt, A, B_, C_, chunk, cb, states, decay, dy, dfinal):
+    """The backward kernels on the forward's scratch: (dx, ddt, dA, dB_, dC_)."""
+    grads = _ssm.launch_bwd(x, dt, A, B_, C_, chunk, cb, states, decay, dy, dfinal)
+    LAUNCHES["ssm_scan_bwd"] += 1
+    return grads
+
+
+def _scan_fake(x, dt, A, B_, C_, chunk):
+    """The dry run's forward: books the kernel's work; empty outputs."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    _book(x, "ssm_scan", _ssm.work(Bb, S, H, P, N, chunk))
+    return (torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device),
+            torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device), ())
+
+
+def _scan_fake_bwd(x, dt, A, B_, C_, chunk, dy, dfinal):
+    """The dry run's backward: books the backward kernels' work."""
+    Bb, S, H, P = x.shape
+    _book(x, "ssm_scan_bwd",
+          _ssm.work_bwd(Bb, S, H, P, B_.shape[-1], chunk, dfinal is not None))
+    return tuple(torch.empty_like(t) for t in (x, dt, A, B_, C_))
+
+
+SCAN_KERNELS = (_scan_kernel, _scan_kernel_bwd)
+SCAN_FAKE = (_scan_fake, _scan_fake_bwd)
 
 
 def ssm_scan(
@@ -300,46 +412,27 @@ def ssm_scan(
                           ((0, 2), (0, 2), (None, 0), (0, None), (0, None)),
                           ((0, 2), (0, 1)))
     chunk = min(chunk, x.shape[1])
-
-    def plain(x, dt, A, B_, C_):
-        return _ssm.ssm_scan_plain(x, dt, A, B_, C_, chunk)
-
-    def kernel(x, dt, A, B_, C_):
-        Bb, S, H, P = x.shape
-        y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
-        final = torch.empty((Bb, H, P, B_.shape[-1]), dtype=torch.float32, device=x.device)
-        _ssm.launch(x, dt, A, B_, C_, chunk, y, final)
-        ssm_scan.launches += 1
-        return y, final
-
-    def fake(x, dt, A, B_, C_):
-        Bb, S, H, P = x.shape
-        N = B_.shape[-1]
-        _book(x, "ssm_scan", _ssm.work(Bb, S, H, P, N, chunk))
-        return (torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device),
-                torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device))
-
     route = _route(x, "ssm_scan")
     if route == "plain":
-        return plain(x, dt, A, B_, C_)
-    call = fake if route == "fake" else kernel
+        return _ssm.ssm_scan_plain(x, dt, A, B_, C_, chunk)
+    if route == "fake":
+        return SsmScanFn.apply(SCAN_FAKE, x, dt, A, B_, C_, chunk)
     if _wants_grad(x, dt, A, B_, C_):
-        return PlainGradient.apply(call, plain, x, dt, A, B_, C_)
-    return call(x, dt, A, B_, C_)
+        return SsmScanFn.apply(SCAN_KERNELS, x, dt, A, B_, C_, chunk)
+    return _scan_kernel(x, dt, A, B_, C_, chunk)[:2]
 
 
-decode_attention.launches = 0
-flash_attention.launches = 0
-paged_decode_attention.launches = 0
-ssm_scan.launches = 0
-
-WRAPPERS = (decode_attention, flash_attention, paged_decode_attention, ssm_scan)
+# each kernel's launches on a card, by its wrapper's name (the backward
+# kernels by their forward's, with "_bwd")
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("decode_attention", "flash_attention", "paged_decode_attention", "ssm_scan",
+     "flash_attention_bwd", "ssm_scan_bwd"), 0)
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def launches() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    return dict(LAUNCHES)

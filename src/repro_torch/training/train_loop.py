@@ -36,7 +36,11 @@ def _mtp_loss(model: Model, params: Any, h: torch.Tensor, batch: Dict) -> torch.
     emb_next = embedding(params["embed"], labels)  # label_t = token t+1
     feat = torch.cat([h[:, :-1], emb_next[:, :-1]], dim=-1)
     mtp = params["mtp"]
-    h_mtp = rmsnorm(feat @ mtp["proj"], mtp["norm"], model.cfg.norm_eps)
+    # the projection's output made whole over its features, as the residual
+    # stream is (settle): its gradient then comes back feature-sharded, and
+    # not sharded over the 255 uneven positions, which DTensor cannot
+    # multiply by featᵀ
+    h_mtp = rmsnorm(settle(feat @ mtp["proj"]), mtp["norm"], model.cfg.norm_eps)
     return cross_entropy(model.logits(params, h_mtp), labels[:, 1:])
 
 

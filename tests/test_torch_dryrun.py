@@ -94,6 +94,7 @@ def reference():
     combos += [(KNOB_ARCH, k, s.seq_len, s.global_batch, knob, (2, 4))
                for k, s in (("train", train), ("prefill", prefill))
                for knob in ("none", "moe_shard_capacity")]
+    combos.append((FAMILIES["moe"], "train", train.seq_len, train.global_batch, "none", (2, 4)))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs = [subprocess.Popen([sys.executable, "-c", REFERENCE, json.dumps(combos[i::3])],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -146,6 +147,26 @@ def test_node_mesh_counts_the_gradient_and_tensor_parallel_all_reduces():
     one, _, _ = count_step(cfg, STEPS["decode"], make_slice_mesh(1, 1))
     assert one.flops / 8 <= decode.flops <= one.flops / 2
     assert 0 < decode.peak_bytes < one.peak_bytes
+
+
+def test_mtp_train_step_dry_runs_on_the_node(reference):
+    """deepseek-v3-671b's smoke train step (MoE, MLA and the MTP head) on the
+    fake (2, 4) node: it syncs gradients over "data", and each device takes
+    between an eighth and a half of the one-device FLOPs, held to the
+    reference's compiled one-device step within 1%.  The reference's
+    compiled step on a (2, 4) mesh of host devices shards further than the
+    port's (XLA splits the products whose weights both packages replicate
+    over "model", the MLA low-rank projections among them; DTensor runs
+    them whole on each "model" device), so the port's node count lies
+    between it and half the one-device count."""
+    arch = FAMILIES["moe"]
+    cfg = get_smoke_config(arch)
+    node, _, _ = count_step(cfg, STEPS["train"], make_production_mesh())
+    assert node.collectives_by_axis.get("all-reduce/data", 0) > 0
+    one, _, _ = count_step(cfg, STEPS["train"], make_slice_mesh(1, 1))
+    assert one.flops == pytest.approx(reference(f"{arch}/train"), rel=0.01)
+    ref_node = reference(f"{arch}/train/none/2x4")
+    assert one.flops / 8 <= ref_node <= node.flops <= one.flops / 2
 
 
 def fake(counter, *shape, dtype=torch.bfloat16):

@@ -63,10 +63,10 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
     q = _randn(rng, (B, S, H, D), dtype, cuda)
     k = _randn(rng, (B, S, KV, D), dtype, cuda)
     v = _randn(rng, (B, S, KV, D), dtype, cuda)
-    before = ops.flash_attention.launches
+    before = ops.LAUNCHES["flash_attention"]
     got = ops.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
-    assert ops.flash_attention.launches == before + 1
+    assert ops.LAUNCHES["flash_attention"] == before + 1
     want = fa_mod.flash_attention_plain(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 1 / math.sqrt(D), window
     ).transpose(1, 2)
@@ -137,10 +137,10 @@ def test_paged_kernel_matches_plain(cuda, dtype, B, H, KV, D, num_pages, page_si
         lengths = rng.integers(1, max_pages * page_size + 1, size=B)
         lengths[0] = 0  # an idle slot gives zeros
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
-    before = ops.paged_decode_attention.launches
+    before = ops.LAUNCHES["paged_decode_attention"]
     got = ops.paged_decode_attention(q, pk, pv, pt, lengths)
     torch.cuda.synchronize()
-    assert ops.paged_decode_attention.launches == before + 1
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 1
     want = paged_mod.paged_decode_attention_plain(q[:, 0], pk, pv, pt, lengths)[:, None]
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert got[0].abs().max().item() == 0.0
@@ -190,10 +190,10 @@ def test_decode_kernel_matches_plain(cuda, dtype, kind, B, KV, G, D, S):
     k = _randn(rng, (B, S, KV, D), dtype, cuda)
     v = _randn(rng, (B, S, KV, D), dtype, cuda)
     valid = _decode_mask(rng, B, S, kind, cuda)
-    before = ops.decode_attention.launches
+    before = ops.LAUNCHES["decode_attention"]
     got = ops.decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
-    assert ops.decode_attention.launches == before + 1
+    assert ops.LAUNCHES["decode_attention"] == before + 1
     want = dec_mod.decode_attention_plain(q[:, 0], k, v, valid)[:, None]
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert got[0].abs().max().item() == 0.0  # a row with nothing valid gives zeros
@@ -225,7 +225,7 @@ def test_decode_wrapper_raises_and_never_falls_back(cuda, monkeypatch):
 
     monkeypatch.setattr(dec_mod, "decode_attention_plain", plain_called)
     ops.decode_attention(q, k, k, valid)  # the kernel, not the plain version
-    before = ops.decode_attention.launches
+    before = ops.LAUNCHES["decode_attention"]
     bad = [
         ((q[..., :48], k[..., :48], k[..., :48], valid), "head_dim"),
         ((q, k.bfloat16(), k.bfloat16(), valid), "dtype"),
@@ -238,7 +238,7 @@ def test_decode_wrapper_raises_and_never_falls_back(cuda, monkeypatch):
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             ops.decode_attention(*args)
-    assert ops.decode_attention.launches == before
+    assert ops.LAUNCHES["decode_attention"] == before
 
 
 def test_wrappers_raise_on_unsupported_input(cuda):
@@ -276,10 +276,10 @@ def _scan_inputs(rng, B, S, H, P, N, device):
 def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
     rng = np.random.default_rng(S + N)
     args = _scan_inputs(rng, B, S, H, P, N, cuda)
-    before = ops.ssm_scan.launches
+    before = ops.LAUNCHES["ssm_scan"]
     y, fin = ops.ssm_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.ssm_scan.launches == before + 1
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
     want_y, want_fin = ssm_scan_plain(*args, chunk)
     torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
     torch.testing.assert_close(fin, want_fin, atol=SCAN_TOL, rtol=SCAN_TOL)
@@ -434,19 +434,20 @@ def _flash_plain(window, scale):
     (1, 48, 1, 130, 128, None),   # granite-20b's MQA
 ])
 def test_flash_gradient_through_the_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
-    """Under grad the wrapper launches the kernel once (the output has a
-    grad_fn), and dq, dk, dv are the plain version's gradients: the backward
-    recomputes the plain version, so they agree to float32 rounding (held
-    to the forward's tolerance, relative to the largest gradient)."""
+    """Under grad the wrapper launches the forward kernel once (the output
+    has a grad_fn) and the backward kernel once, and dq, dk, dv are the
+    plain version's autograd gradients within the forward's tolerance,
+    relative to the largest gradient."""
     rng = np.random.default_rng(S + D)
     q, k, v = (_randn(rng, (B, S, n, D), dtype, cuda).requires_grad_() for n in (H, KV, KV))
     w = _randn(rng, (B, S, H, D), dtype, cuda)
-    before = ops.flash_attention.launches
+    before = ops.LAUNCHES["flash_attention"], ops.LAUNCHES["flash_attention_bwd"]
     out = ops.flash_attention(q, k, v, window=window)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), w)
     torch.cuda.synchronize()
-    assert ops.flash_attention.launches == before + 1
+    assert (ops.LAUNCHES["flash_attention"], ops.LAUNCHES["flash_attention_bwd"]) == (
+        before[0] + 1, before[1] + 1)
     plain_out = _flash_plain(window, 1 / math.sqrt(D))(q, k, v)
     want = torch.autograd.grad(plain_out, (q, k, v), w)
     assert _rel_err(out, plain_out) <= TOL[dtype]
@@ -468,16 +469,88 @@ def test_ssm_scan_gradient_through_the_kernel_matches_plain(cuda, B, S, H, P, N,
     Bm, Cm = (_randn(rng, (B, S, N), torch.float32, cuda).requires_grad_() for _ in range(2))
     w = _randn(rng, (B, S, H, P), torch.float32, cuda)
     args = (x, dt, A, Bm, Cm)
-    before = ops.ssm_scan.launches
+    before = ops.LAUNCHES["ssm_scan"], ops.LAUNCHES["ssm_scan_bwd"]
     y, final = ops.ssm_scan(*args, chunk=chunk)
     assert y.grad_fn is not None and final.grad_fn is not None
     got = torch.autograd.grad(y, args, w)  # the final state unused, as in training
     torch.cuda.synchronize()
-    assert ops.ssm_scan.launches == before + 1
+    assert (ops.LAUNCHES["ssm_scan"], ops.LAUNCHES["ssm_scan_bwd"]) == (
+        before[0] + 1, before[1] + 1)
     want_y, _ = ssm_scan_plain(*args, chunk)
     want = torch.autograd.grad(want_y, args, w)
     assert _rel_err(y, want_y) <= SCAN_TOL
     for name, g, ref in zip(("x", "dt", "A", "B_", "C_"), got, want):
+        assert _rel_err(g, ref) <= SCAN_TOL, f"d{name}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D,window", [
+    (2, 4, 2, 48, 32, None),
+    (1, 8, 2, 100, 128, 33),
+    (2, 32, 8, 256, 128, None),   # qwen3-8b's heads
+    (1, 48, 1, 130, 128, None),   # granite-20b's MQA
+    (1, 14, 2, 300, 64, None),    # internvl2-1b: G = 7
+    (1, 6, 2, 100, 16, 5),        # head_dim 16 (phi4-mini's smoke heads) under a window
+    (1, 4, 2, 1, 64, None),       # ragged against the 64-row tiles
+    (1, 8, 8, 1024, 128, 256),    # the [grad] window shape's heads, one KV head a head
+])
+def test_flash_backward_kernel_matches_its_plain_backward(cuda, dtype, B, H, KV, S, D, window):
+    """The forward kernel's log-sum-exp against the masked scores' (float32,
+    1e-4 relative to the largest), and the backward kernel's dq, dk, dv
+    against the explicit plain backward on the same q, k, v, out, lse and
+    dout: within the forward's tolerance relative to the largest gradient
+    (bf16 rounds P and dS to bf16 as the products' operands)."""
+    rng = np.random.default_rng(S + D + H)
+    q, k, v = (_randn(rng, (B, n, S, D), dtype, cuda) for n in (H, KV, KV))
+    dout = _randn(rng, (B, H, S, D), dtype, cuda)
+    scale = 1 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    fa_mod.launch(q, k, v, out, scale, window, lse)
+    _, want_lse = fa_mod.flash_attention_plain_lse(q, k, v, scale, window)
+    torch.cuda.synchronize()
+    assert _rel_err(lse, want_lse) <= 1e-4
+    got = [torch.empty_like(t) for t in (q, k, v)]
+    fa_mod.launch_bwd(q, k, v, out, lse, dout, *got, scale, window)
+    want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, window)
+    torch.cuda.synchronize()
+    for name, g, ref in zip("qkv", got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        assert _rel_err(g, ref) <= TOL[dtype], f"d{name}"
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 4, 32, 16, 16),
+    (1, 256, 32, 64, 128, 128),   # mamba2-370m's heads
+    (1, 100, 3, 16, 20, 25),      # a chunk that is no multiple of 8 or 16
+    (2, 128, 64, 64, 64, 128),    # zamba2-1.2b's heads
+])
+def test_ssm_scan_backward_kernel_matches_its_plain_backward(cuda, final, B, S, H, P, N, chunk):
+    """The backward kernels on the forward kernel's scratch against the
+    explicit plain backward on the same inputs and entering states, with
+    d(final) zero and not, within the scan's tolerance relative to the
+    largest gradient; the entering states the forward kept equal the plain
+    ones."""
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    rng = np.random.default_rng(S + H)
+    x = _randn(rng, (B, S, H, P), torch.float32, cuda)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, S, H), torch.float32, cuda))
+    A = -torch.exp(_randn(rng, (H,), torch.float32, cuda) * 0.5)
+    Bm, Cm = (_randn(rng, (B, S, N), torch.float32, cuda) for _ in range(2))
+    dy = _randn(rng, (B, S, H, P), torch.float32, cuda)
+    dfinal = _randn(rng, (B, H, P, N), torch.float32, cuda) if final else None
+    y, fin = torch.empty_like(x), torch.empty((B, H, P, N), device=cuda)
+    scratch = ssm_mod.scratch(B, S, H, P, N, chunk, cuda)
+    ssm_mod.launch(x, dt, A, Bm, Cm, chunk, y, fin, *scratch)
+    entering = ssm_mod.ssm_scan_plain_states(x, dt, A, Bm, Cm, chunk)
+    got = ssm_mod.launch_bwd(x, dt, A, Bm, Cm, chunk, *scratch, dy, dfinal)
+    want = ssm_mod.ssm_scan_bwd_plain(x, dt, A, Bm, Cm, chunk, entering, dy, dfinal)
+    torch.cuda.synchronize()
+    assert _rel_err(scratch[1], entering) <= SCAN_TOL
+    for name, g, ref in zip(("x", "dt", "A", "B_", "C_"), got, want):
+        assert torch.isfinite(g).all()
         assert _rel_err(g, ref) <= SCAN_TOL, f"d{name}"
 
 
@@ -506,7 +579,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
     batches: the metrics within 1e-4 relative of the CPU's (the kernels'
     float32 forward differs from the plain version by up to their
     tolerance; embed gradients accumulate through atomics), and every
-    attention and Mamba2 layer launched its kernel (twice under remat)."""
+    attention and Mamba2 layer launched its forward kernel (twice under
+    remat) and its backward kernel once a step."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
     from repro_torch.models.common import tree_to
@@ -534,6 +608,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
     per = 2 if remat else 1
     assert ops.launches()["flash_attention"] == 2 * n_attn * per
     assert ops.launches()["ssm_scan"] == 2 * n_ssm * per
+    # one backward launch a layer and step: the forward's count, half of it under remat
+    assert ops.launches()["flash_attention_bwd"] == 2 * n_attn
+    assert ops.launches()["ssm_scan_bwd"] == 2 * n_ssm
 
 
 def test_fake_cuda_tensors_book_the_kernels_and_launch_nothing(cuda, monkeypatch):

@@ -364,13 +364,16 @@ def test_ops_wrappers_refuse_other_devices():
 
 
 def test_reset_launches_zeroes_every_counter():
-    ops.decode_attention.launches = 2
-    ops.flash_attention.launches = 3
-    ops.paged_decode_attention.launches = 5
-    ops.ssm_scan.launches = 7
+    ops.LAUNCHES["decode_attention"] = 2
+    ops.LAUNCHES["flash_attention"] = 3
+    ops.LAUNCHES["paged_decode_attention"] = 5
+    ops.LAUNCHES["ssm_scan"] = 7
+    ops.LAUNCHES["flash_attention_bwd"] = 11
+    ops.LAUNCHES["ssm_scan_bwd"] = 13
     ops.reset_launches()
     assert ops.launches() == {"decode_attention": 0, "flash_attention": 0,
-                              "paged_decode_attention": 0, "ssm_scan": 0}
+                              "paged_decode_attention": 0, "ssm_scan": 0,
+                              "flash_attention_bwd": 0, "ssm_scan_bwd": 0}
 
 
 def test_rows_aligned_guards_the_kernels_16_byte_loads():

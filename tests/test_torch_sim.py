@@ -193,3 +193,76 @@ def test_chip_smoke_sim_phase_runs_on_the_cpu(capsys):
                for g in sim.cluster.gpus.values())
     assert rep.faults and rep.transitions
     assert all(math.isfinite(rep.mean_attainment(s)) for s in rep.services)
+
+
+def _recorded_plan(cs):
+    from repro_torch.core.arch_bridge import h100_arch_profiles
+
+    seen = []
+    make = cs.recording_profiles(T.MeasuredProfile, h100_arch_profiles, seen)
+    for arch, rps in zip(list(cs.PLAN_ARCHS), [1.1, 1.4, 1.2, 1.1, 1.7, 2.3, 0.9]):
+        make(arch).observe(arch, 7, 8, rps)
+    return cs.plan_mig(T, h100_arch_profiles, seen, 0)
+
+
+@pytest.mark.parametrize("fault", ["none", "gpu_loss"])
+def test_chip_smoke_sim_phase_moves_with_the_measured_noise(capsys, fault):
+    """Phase 10 reads the card through ``throughput_noise``: with sigma 0 its
+    reports are the noiseless loop's bytes, with sigma 0.2 other bytes,
+    byte-equal across two runs; the [sim] lines print sigma and its source."""
+    cs = chip_smoke()
+    plan = _recorded_plan(cs)
+    args = (T, TS, plan["profile"], plan["day_rates"], plan["night_rates"], fault, 0)
+    base = cs.sim_run(*args)[1].to_json()
+    assert cs.sim_run(*args, 0.0)[1].to_json() == base
+    noisy = [cs.sim_run(*args, 0.2)[1].to_json() for _ in range(2)]
+    assert noisy[0] == noisy[1] != base
+    capsys.readouterr()
+    cs.sim_phase(T, TS, plan, 0, 0.2, "phase6 decode-step device-busy of x/paged")
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[sim] ")]
+    assert len(lines) == len(cs.SIM_FAULTS)
+    for line in lines:
+        assert "throughput_noise=0.2000 noise_source=" in line and "same_bytes=True" in line
+        got = line.split("report_sha256=")[1].split()[0]
+        assert got != line.split("noiseless_sha256=")[1].split()[0]
+
+
+def test_tpot_noise_is_the_largest_spread_clipped():
+    """Sigma is the largest (p90 - p50) / p50 of a profiled run's decode-step
+    device-busy ms (each step's device share of a token's time), clipped
+    to [0, 0.5], with the run it came from."""
+    cs = chip_smoke()
+    flat = [1.0] * 9 + [1.4]  # p50 1.0, p90 1.04
+    sigma, source = cs.busy_noise([("a", "paged", [2.0] * 10), ("b", "flat", flat)])
+    assert sigma == pytest.approx(0.04) and source.endswith("b/flat")
+    assert cs.busy_noise([("a", "paged", [1.0] * 5 + [9.0] * 5)])[0] == 0.5
+    assert cs.busy_noise([("a", "paged", [3.0] * 8)])[0] == 0.0
+
+
+def test_step_busy_counts_each_kernel_in_the_step_it_starts_in():
+    """Phase 6's per-step device-busy ms: each kernel's device time goes to
+    the traced step whose host range holds its start; the device side of
+    the ranges is not a kernel; the share of kernel time the ranges hold."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    def ev(kind, name, a, b, us=0.0, note=False):
+        return NS(device_type=kind, name=name, time_range=NS(start=a, end=b),
+                  self_device_time_total=us, is_user_annotation=note)
+
+    cpu, cuda, label = DeviceType.CPU, DeviceType.CUDA, "chip_smoke_decode_step_"
+    events = [ev(cpu, label + "1", 200, 300), ev(cpu, label + "0", 0, 100),
+              ev(cpu, "aten::mm", 10, 20),
+              ev(cuda, label + "0", 12, 90, us=78.0, note=True),
+              ev(cuda, "gemm", 12, 40, us=28.0), ev(cuda, "paged_split", 50, 90, us=40.0),
+              ev(cuda, "gemm", 210, 260, us=50.0)]
+    per_step, cover = cs_step_busy(events)
+    assert per_step == [pytest.approx(0.068), pytest.approx(0.05)]
+    assert cover == pytest.approx(1.0)
+    per_step, cover = cs_step_busy(events + [ev(cuda, "late", 150, 160, us=10.0)])
+    assert cover == pytest.approx(118 / 128)
+
+
+def cs_step_busy(events):
+    return chip_smoke().step_busy(events)

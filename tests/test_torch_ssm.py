@@ -146,7 +146,7 @@ def test_ops_ssm_scan_routes_cpu_to_plain_without_counting():
     y1, _ = ops.ssm_scan(*args, chunk=128)
     torch.testing.assert_close(y1, ssm_scan_plain(*args, 32)[0], atol=0, rtol=0)
     assert ops.launches()["ssm_scan"] == 0
-    ops.ssm_scan.launches = 4
+    ops.LAUNCHES["ssm_scan"] = 4
     ops.reset_launches()
     assert ops.launches()["ssm_scan"] == 0
 
