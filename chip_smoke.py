@@ -11,14 +11,20 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: the six CUDA libraries (the four forward kernels and the
    backward kernels of flash attention and the SSD scan) compiled by nvcc
    from ``src/repro_torch/kernels/csrc``, one nvcc each, all started
-   together; each library's count of tensor-core (HMMA) instructions from
-   ``cuobjdump -sass``, which must not be 0 for any of the six;
+   together; ptxas's registers, spills and wgmma/setmaxnreg notes; each
+   library's count of tensor-core instructions from ``cuobjdump -sass``:
+   ``hmma`` (mma.sync) and ``hgmma`` (Hopper's wgmma), whose sum must not
+   be 0 for any of the six, and ``hgmma`` not 0 for flash attention's two
+   libraries (bf16 at head dim 64 and 128 runs on wgmma);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's,
    granite-20b's, phi4-mini-3.8b's (G = 3) and internvl2-1b's (G = 7), at
    head_dim 16 (phi4-mini's smoke heads) in bf16 and float32, the ring
    prefill's batch-8 window, the flat decode on prefix and ring masks, the
    SSD scan at mamba2-370m's and zamba2-1.2b's),
+   each flash line naming the variant that ran (``variant``: ``wgmma``,
+   ``mma_sync`` or ``f32``, as ``flash_attention.variant`` chooses by dtype
+   and head dim),
    with its time, the plain version's, a library call's where one exists,
    and the bound (the scan's both on the tensor cores, which it is held
    to, and on the float32 CUDA cores); for the paged decode and the scan,
@@ -79,8 +85,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    eight full decode steps timed on the host clock and eight more traced
    with torch.profiler (device-busy time by kernel family, idle share,
    launches per step, and each traced step's device-busy ms: the kernels
-   that start within its host range, each step ending with a synchronize;
-   it fails unless those ranges hold every traced kernel); for
+   that start within its range's device side, on the card's clock, each
+   step ending with a synchronize; it fails unless those ranges hold every
+   traced kernel; ``device_lag_ms`` is how far a step's first kernel starts
+   after its host range, as the profiler maps one clock onto the other); for
    qwen3-8b and mamba2-370m, one admission of a 1024-token prompt, timed
    and then traced the same way; one qwen3-8b and one mamba2-370m
    training step split into
@@ -229,6 +237,9 @@ TRAIN_LAYERS = 8
 # stream at AdamW's default rate (the train CLI's 1e-3 makes the 8-layer
 # model's loss rise over these 10 steps), one warmup step as the CLI sets
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 4, 1024, 3e-4
+
+# the libraries whose bf16 kernels at head dim 64 and 128 are wgmma products
+WGMMA_LIBS = ("flash_attention", "flash_attention_bwd")
 
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -502,9 +513,9 @@ def check_flash(torch, ops, fa_mod, dtype, rng, cfg, S, window, B=1):
         is_causal=window is None, scale=scale, enable_gqa=True), iters)
     flops, nbytes = fa_mod.work(B, S, H, KV, D, window, dbytes)
     b_ms, b_by = bound(nbytes, flops, name)
-    phase("kernels", kernel="flash_attention", config=cfg.name, dtype=name, B=B, S=S, H=H,
-          KV=KV, D=D,
-          window=window, max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
+    phase("kernels", kernel="flash_attention", variant=fa_mod.variant(dtype, D),
+          config=cfg.name, dtype=name, B=B, S=S, H=H, KV=KV, D=D, window=window,
+          max_abs_err=f"{err:.3e}", ok=ok, ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     if not ok:
@@ -682,8 +693,8 @@ def check_flash_grad(torch, ops, fa_mod, dtype, rng, B, S, H, KV, D, window, was
     bwd_flops, bwd_bytes = fa_mod.work_bwd(B, S, H, KV, D, window, dbytes)
     b_ms, b_by = bound(2 * fwd_bytes, 3 * fwd_flops, name)
     bb_ms, bb_by = bound(bwd_bytes, bwd_flops, name)
-    phase("grad", kernel="flash_attention", dtype=name, B=B, S=S, H=H, KV=KV, D=D,
-          window=window, grad_fn=has_grad_fn, bwd_launches=n_bwd,
+    phase("grad", kernel="flash_attention", variant=fa_mod.variant(dtype, D), dtype=name, B=B,
+          S=S, H=H, KV=KV, D=D, window=window, grad_fn=has_grad_fn, bwd_launches=n_bwd,
           **{f"err_{k}": f"{e:.3e}" for k, e in errs.items()},
           **{f"bwd_err_{k}": f"{e:.3e}" for k, e in bwd_errs.items()}, tol=TOL[name], ok=ok,
           fwd_bwd_ms=f"{ms:.4f}", was_ms=was_ms, plain_fwd_bwd_ms=f"{plain_ms:.4f}",
@@ -1873,13 +1884,18 @@ def main() -> None:
           arch="sm_90a", kernels=",".join(_build.KERNELS))
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line or "setmaxnreg" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
     for name in _build.KERNELS:  # tensor-core instructions in the machine code
-        hmma = sum("HMMA" in line for line in _build.sass(name).splitlines())
-        phase("sass", kernel=name, hmma=hmma)
-        if hmma == 0:
-            fail(f"{name}: no HMMA instruction in its library")
+        sass = _build.sass(name).splitlines()
+        # mma.sync disassembles as HMMA, wgmma as HGMMA
+        hmma = sum("HMMA" in line for line in sass)
+        hgmma = sum("HGMMA" in line for line in sass)
+        phase("sass", kernel=name, hmma=hmma, hgmma=hgmma)
+        if hmma + hgmma == 0:
+            fail(f"{name}: no tensor-core instruction (HMMA or HGMMA) in its library")
+        if name in WGMMA_LIBS and hgmma == 0:
+            fail(f"{name}: no HGMMA instruction: its bf16 kernels at D 64 and 128 use wgmma")
 
     # 3. kernels against their plain versions, at the main paths' shapes -------
     rng = np.random.default_rng(args.seed)
@@ -2017,8 +2033,7 @@ def main() -> None:
     profile_decode(torch, engine, qwen, rng, Request, decode_busy=decode_busy)
     busy = {"admit": profile_prefill(
         torch, engine, qwen, rng, Request,
-        {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
-         "matmul": MATMUL_NAMES})}
+        {"flash_attention": FLASH_FWD_NAMES, "matmul": MATMUL_NAMES})}
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -2205,6 +2220,7 @@ def kernel_families(events, families):
 
 
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma")
+FLASH_FWD_NAMES = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_attention_kernel")
 
 
 DECODE_FAMILIES = {"decode_attention": ("decode_split", "decode_merge_kernel"),
@@ -2241,14 +2257,15 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
     events = prof.key_averages()
     families, n_kernels = kernel_families(events, families)
     busy_ms = sum(families.values()) / steps / 1e3
-    per_step, cover = step_busy(prof.events())
+    per_step, cover, lag = step_busy(prof.events())
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",
           device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.3f}",
           **{f"{k}_ms_per_step": f"{v / steps / 1e3:.3f}" for k, v in families.items()},
           kernels_per_step=n_kernels // steps,
           step_busy_ms=json.dumps([round(x, 4) for x in per_step]),
-          step_ranges_cover=f"{cover:.4f}")
+          step_ranges_cover=f"{cover:.4f}",
+          device_lag_ms=f"{lag[0]:.4f},{lag[1]:.4f}")
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     if len(per_step) != steps or cover < STEP_COVER:
         fail(f"{cfg.name}: {len(per_step)} traced step ranges hold {cover:.4f} of the "
@@ -2267,20 +2284,35 @@ STEP_COVER = 0.999
 
 
 def step_busy(events):
-    """Each traced step's device-busy ms (the kernels that start within the
-    host range of its ``STEP_LABEL`` record, which ends after a
-    synchronize, so its kernels have run), in order, and the share of all
-    traced kernel time the ranges hold."""
+    """Each traced step's device-busy ms, in order, the share of all traced
+    kernel time the steps hold, and the least and the largest lag (ms) of a
+    step's first kernel after the start of its host range.
+
+    A kernel belongs to the step whose ``STEP_LABEL`` range holds its start
+    on the card's clock: the profiler gives each range a device side, from
+    the first of the range's kernels to the end of its last. A kernel's
+    time on the host's clock is the profiler's mapping of the card's, and
+    comparing it with the host ranges has left 2.4% of granite-20b's
+    kernel time outside every range on an H100; the lag shows how far the
+    two clocks disagree."""
     from torch.autograd import DeviceType
 
-    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
-                    if e.device_type == DeviceType.CPU and e.name.startswith(STEP_LABEL))
+    host, device = {}, {}
+    for e in events:
+        if e.name.startswith(STEP_LABEL):
+            side = device if e.device_type == DeviceType.CUDA else host
+            a, b = side.get(e.name, (e.time_range.start, e.time_range.end))
+            side[e.name] = (min(a, e.time_range.start), max(b, e.time_range.end))
+    names = sorted(device, key=lambda n: int(n[len(STEP_LABEL):]))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    per_step = [sum(k.self_device_time_total for k in kernels if a <= k.time_range.start < b)
-                / 1e3 for a, b in ranges]
+    per_step = [sum(k.self_device_time_total for k in kernels
+                    if device[n][0] <= k.time_range.start <= device[n][1]) / 1e3
+                for n in names]
     total = sum(k.self_device_time_total for k in kernels) / 1e3
-    return per_step, (sum(per_step) / total if total > 0 else 0.0)
+    lags = [(device[n][0] - host[n][0]) / 1e3 for n in names if n in host]
+    return (per_step, (sum(per_step) / total if total > 0 else 0.0),
+            (min(lags), max(lags)) if lags else (float("nan"), float("nan")))
 
 
 def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -> float:
@@ -2314,9 +2346,10 @@ def profile_prefill(torch, engine, cfg, rng, Request, families, L: int = 1024) -
     return busy_ms
 
 
-TRAIN_FAMILIES = {"flash_attention": ("flash_mma_kernel", "flash_attention_kernel"),
-                  "flash_attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel", "delta_kernel",
-                                          "dkdv_f32_kernel", "dq_f32_kernel"),
+TRAIN_FAMILIES = {"flash_attention": FLASH_FWD_NAMES,
+                  "flash_attention_bwd": ("dkdv_wgmma_kernel", "dq_wgmma_kernel",
+                                          "delta_lse_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
+                                          "delta_kernel", "dkdv_f32_kernel", "dq_f32_kernel"),
                   "attn_softmax": ("softmax",), "matmul": MATMUL_NAMES}
 # the scan's backward first: its first launch is chunk_state_kernel<true>
 SSM_TRAIN_FAMILIES = {"ssm_scan_bwd": ("chunk_state_kernel<true>", "state_pass_bwd", "chunk_bwd",

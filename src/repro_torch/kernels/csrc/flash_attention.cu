@@ -10,31 +10,56 @@
 // qwen3-8b's S = 512 the causal work is 2.15 GFLOP, 2.2 us at the bf16
 // tensor cores' 989 TFLOP/s and 32 us at the CUDA cores' 67 in float32.
 //
-// Design: two kernels, by input type.
+// Design: three kernels, by input type and head dim.
 //
-// bf16 (flash_mma_kernel), on the tensor cores, FA2-style:
+// bf16 at D 64 and 128 (flash_wgmma_kernel: every full-width model), on
+// Hopper's warpgroup tensor cores, FA3-style (hopper.cuh):
+//   * one block per (128-row query tile, head, batch): two consumer
+//     warpgroups of 64 query rows each and a producer warpgroup, one of
+//     whose threads issues the TMA loads; setmaxnreg moves registers
+//     from the producer to the consumers (24 and 240);
+//   * the producer loads the Q tile once and keeps 128-key K and V tiles
+//     in flight in a ring of two stages, with full barriers (the TMA bytes)
+//     and empty ones (an arrival from each consumer warp) for K and for V
+//     apart, so a K stage refills as soon as its S is done; the model's
+//     (B, S, H, D) layout is read in place through a 4-D tensor map (D, S,
+//     heads, B) per operand, in 64-column boxes of 128 rows under the
+//     128-byte swizzle (a D-128 row is two boxes); rows past S land as
+//     zeros; at D 128 that is Q 32 KB, K and V 64 KB each, one block an SM;
+//   * S = Q Kᵀ is one wgmma m64n128k16 chain with both operands in shared
+//     memory (K-major); the online softmax runs in the accumulator
+//     registers, one FFMA and one ex2 a score with scale * log2(e) folded
+//     in, its row max and sum as trees; P is rounded to bf16 in registers
+//     and is the A operand of O += P V, whose B operand is V in its natural
+//     (key, D) layout through the MN-major descriptor: nothing is copied
+//     from shared memory into registers (no ldmatrix);
+//   * not FA3's overlaps: S of tile i beside P V of tile i - 1 in one
+//     consumer needs S, O and P in flight at once, and ptxas then runs
+//     short of registers and serialises every product; the two consumers
+//     taking turns on the tensor cores (ping-pong) did not pay on the H100
+//     at the main path's shapes, so they run side by side;
+//   * the mask runs only where the diagonal (the last tile: query and key
+//     tiles are both 128 wide and aligned, so key tile t == the query tile
+//     holds the diagonal; for the first consumer only its left half is
+//     live, for the second all of it) or the window's lower edge cuts the
+//     tile; it sets a score to -inf, so a tile below a row's window adds
+//     nothing to it; keys past S lie past the diagonal; the kv loop runs
+//     from the window's lower edge to the causal limit, and the longest
+//     query tiles go first.
+// bf16 at D 16 and 32 (flash_mma_kernel: smoke configs only, chosen by
+// head dim; wgmma's 64-column swizzled boxes do not fit them), FA2-style
+// on mma.sync:
 //   * one block per (64-row query tile, head, batch), 4 warps of 16 query
-//     rows; a warp loads its rows' Q fragments once (ldmatrix) and keeps
-//     them, its online-softmax state and its 16 x D output in registers;
-//   * K and V move in 64-key tiles, 16-byte cp.async straight into shared
-//     memory as bf16, two stages: the next tile is in flight while the
-//     current one is computed; rows are padded to D + 8 so ldmatrix reads
-//     them without bank conflicts; rows past S are zero-filled;
-//   * S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32 products
-//     (attend_tile_mma in mma.cuh); the row max and sum are shuffles within
-//     a quad, exp2f takes scale * log2(e) folded into the scores, and P is
-//     rounded to bf16 in registers and used as the A operand of P V, with
-//     V's fragments from ldmatrix.trans;
-//   * the mask runs only on the diagonal tile and on tiles the window's
-//     lower edge cuts; the kv loop stops at the causal limit and starts at
-//     the window's lower edge, as the Pallas kernel's pl.when skips dead
-//     blocks;
-//   * the query tiles are the slowest grid axis, longest (last) first, so
-//     the short tiles of the causal tail fill the SMs at the end instead of
-//     leaving them idle;
-//   * P rounded to bf16 before P V is the one rounding the float32
-//     reference lacks; bf16 x bf16 products summed in f32 are what the
-//     Pallas kernel's upcast-then-f32 dot computes.
+//     rows; a warp keeps its rows' Q fragments (ldmatrix), its online
+//     softmax state and its output in registers;
+//   * 64-key K and V tiles by 16-byte cp.async in two stages, rows padded
+//     to D + 8 for conflict-free ldmatrix, rows past S zero-filled;
+//   * S = Q K^T and O += P V as mma.sync m16n8k16 (attend_tile_mma in
+//     mma.cuh), P rounded to bf16 in registers as the A operand of P V;
+//     the mask on the diagonal tile and the window's edge only.
+// P rounded to bf16 before P V is the one rounding the float32 reference
+// lacks in both bf16 kernels; bf16 x bf16 products summed in f32 are what
+// the Pallas kernel's upcast-then-f32 dot computes.
 //
 // float32 (flash_attention_kernel), on the CUDA cores, as first written:
 //   TF32 tensor cores would keep about three decimal digits, past the 1e-4
@@ -52,14 +77,17 @@
 //     reading different keys hit different banks);
 //   * the kv loop bounds and the ragged tail as in the bf16 kernel.
 //
-// Both read q/k/v/o through the strides the wrapper passes, so the model's
+// All read q/k/v/o through the strides the wrapper passes, so the model's
 // (B, S, H, D) layout is read in place; any S works (the ragged tail is
-// masked); masking uses -1e30 as the JAX code does, and l is clamped at
-// 1e-30 before the final division.  Under training both also write each
+// masked); the older kernels mask with -1e30 as the JAX code does (the
+// wgmma kernel with -inf against a row max that starts at -1e30: the
+// same probabilities), and l is clamped at 1e-30 before the final
+// division.  Under training all also write each
 // query row's log-sum-exp, m + log(l) (natural log), into a float32
 // (B, H, S) array for the backward (flash_attention_bwd.cu); serving
 // passes null and writes nothing more.
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -377,14 +405,266 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_mma(int D, const void* q, const void* k, const void* v, void* o, int B,
-                         int S, int H, int KV, const int64_t* st, float scale, int window,
-                         float* lse, cudaStream_t stream) {
+// -- bf16 at D 64 and 128: TMA, wgmma, warp specialisation --------------------
+
+constexpr int kWgRows = 128;   // query rows a block: 64 per consumer warpgroup
+constexpr int kWgKeys = 128;   // keys a K/V tile
+constexpr int kWgStages = 2;   // K/V tiles in flight
+constexpr int kWgThreads = 384;  // two consumer warpgroups, then the producer's
+constexpr int kBox = 128 * 128;  // bytes of a box: 128 rows of 64 bf16 columns
+
+template <int D>
+struct WgmmaSmem {
+  static constexpr int kChunks = D / 64;  // 64-column boxes a row
+  alignas(1024) __nv_bfloat16 q[kChunks][kWgRows * 64];
+  __nv_bfloat16 k[kWgStages][kChunks][kWgKeys * 64];
+  __nv_bfloat16 v[kWgStages][kChunks][kWgKeys * 64];
+  uint64_t q_full, k_full[kWgStages], k_empty[kWgStages], v_full[kWgStages], v_empty[kWgStages];
+};
+
+struct WgmmaArgs {
+  __nv_bfloat16* o;
+  float* lse;
+  int64_t o_sb, o_ss, o_sh;
+  int S, G, window;
+  float scale_log2;
+};
+
+// Set to -inf the scores of an accumulator tile (the m64nN layout; this
+// thread's rows r and r + 8, key k0 + 8j + e % 2 in register 4j + e, with
+// k0 = the tile's first key + 2t) that lie past the diagonal or below the
+// window (window <= 0: none).
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&s)[N / 2], int r, int k0, int window) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = r + 8 * (e >> 1), kj = k0 + 8 * j + (e & 1);
+      if (kj > qi || (window > 0 && kj <= qi - window)) s[4 * j + e] = masked_score();
+    }
+}
+
+// One tile of the online softmax on raw scores s (scaled by scale_log2
+// inside the exponent: one FFMA and one ex2 a score): m in log2 units, l
+// this thread's partial row sums, alpha the factor the caller rescales
+// the output by; s becomes P.  The row max is a tree over the thread's
+// scores, then a shuffle within the quad.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float scale_log2) {
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mx[r][q] = kNegInf;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r][j % 4] = fmaxf(mx[r][j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+    const float m_new = fmaxf(m[r], x * scale_log2);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    neg[r] = -m_new;
+  }
+  float sum[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sum[r][q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], scale_log2, neg[e >> 1]));
+      sum[e >> 1][j % 4] += s[4 * j + e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const WgmmaArgs a) {
+  using Smem = WgmmaSmem<D>;
+  constexpr int kChunks = Smem::kChunks;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_1k(smem_raw));
+
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest query tiles first
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / a.G;
+  const int q_start = qt * kWgRows;
+  const int kv_first = a.window > 0 ? max(0, q_start - a.window + 1) : 0;
+  const int t_first = kv_first / kWgKeys;
+  // key tiles from the window's lower edge to the causal limit: the tile
+  // holding the block's last row (its keys past S are zeros, and masked)
+  const int n_tiles = (min(q_start + kWgRows, a.S) - 1) / kWgKeys - t_first + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], 8);  // one arrival from each consumer warp
+      mbar_init(&sm.v_empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // producer: one thread keeps the TMA loads in flight
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      mbar_expect_tx(&sm.q_full, kChunks * kBox);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(sm.q[c], &qmap, &sm.q_full, 64 * c, q_start, h, b);
+      // K and V of a tile are released apart: K once S is done, V once P V is
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kWgStages, k_start = (t_first + i) * kWgKeys;
+        const uint32_t parity = (i / kWgStages - 1) & 1;
+        if (i >= kWgStages) mbar_wait(&sm.k_empty[s], parity);
+        mbar_expect_tx(&sm.k_full[s], kChunks * kBox);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(sm.k[s][c], &kmap, &sm.k_full[s], 64 * c, k_start, kvh, b);
+        if (i >= kWgStages) mbar_wait(&sm.v_empty[s], parity);
+        mbar_expect_tx(&sm.v_full[s], kChunks * kBox);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(sm.v[s][c], &vmap, &sm.v_full[s], 64 * c, k_start, kvh, b);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    setmaxnreg_inc<240>();
+    const int cw = wg;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row0 = q_start + 64 * cw;        // the warpgroup's first row
+    const int row_last = row0 + 63;
+    const int r_thread = row0 + 16 * warp + g;  // this thread's rows: r_thread, + 8
+    const uint64_t q_desc = desc_k(smem_u32(sm.q[0]) + cw * 64 * 128);
+
+    float o[D / 2], s[kWgKeys / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWgKeys / 2; ++i) s[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    auto release = [&](uint64_t* bar) {  // this warp is done with a stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    mbar_wait(&sm.q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kWgStages, k_start = (t_first + i) * kWgKeys;
+      const uint32_t parity = (i / kWgStages) & 1;
+      mbar_wait(&sm.k_full[st], parity);
+      const uint64_t k_desc = desc_k(smem_u32(sm.k[st][0]));
+      zero_acc(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {  // S, both K-major in shared memory
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss<kWgKeys>(s, desc_add(q_desc, off), desc_add(k_desc, off), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(&sm.k_empty[st]);
+
+      // the mask only where the diagonal or the window's lower edge cuts
+      // the tile (keys past S lie past the diagonal; a tile below a row's
+      // window leaves the row untouched)
+      if (k_start + kWgKeys - 1 > row0 || (a.window > 0 && k_start + a.window <= row_last))
+        mask_scores<kWgKeys>(s, r_thread, k_start + 2 * t4, a.window);
+      float alpha[2];
+      online_softmax<kWgKeys>(s, m, l, alpha, a.scale_log2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V: P rounded to bf16 in registers, V MN-major
+      uint32_t p[kWgKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) a_from_acc(p[kk], s, kk);
+      mbar_wait(&sm.v_full[st], parity);
+      const uint64_t v_desc = desc_mn(smem_u32(sm.v[st][0]), kBox);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk)
+        wgmma_rs<D>(o, p[kk], desc_add(v_desc, kk * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(&sm.v_empty[st]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float denom = fmaxf(quad_sum(l[r]), 1e-30f);  // every lane: shuffles
+      const int qi = r_thread + 8 * r;
+      if (qi >= a.S) continue;
+      if (a.lse != nullptr && t4 == 0)  // m is in log2 units: scores carry log2(e)
+        a.lse[(static_cast<int64_t>(b) * gridDim.x + h) * a.S + qi] =
+            (m[r] + log2f(denom)) * kLn2;
+      const float inv = 1.f / denom;
+      __nv_bfloat16* orow = a.o + b * a.o_sb + qi * a.o_ss + h * a.o_sh + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                         int H, int KV, const int64_t* st, float scale, int window, float* lse,
+                         cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!bf16_map(&qmap, q, D, S, H, B, st[0], st[1], st[2], kWgRows) ||
+      !bf16_map(&kmap, k, D, S, KV, B, st[3], st[4], st[5], kWgKeys) ||
+      !bf16_map(&vmap, v, D, S, KV, B, st[6], st[7], st[8], kWgKeys))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_kernel<D>;
+  const size_t smem = sizeof(WgmmaSmem<D>) + 1024;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const WgmmaArgs a{static_cast<__nv_bfloat16*>(o), lse, st[9], st[10], st[11], S, H / KV,
+                    window, scale * kLog2e};
+  const dim3 grid(H, B, (S + kWgRows - 1) / kWgRows);  // query tiles slowest
+  kernel<<<grid, kWgThreads, smem, stream>>>(qmap, kmap, vmap, a);
+  return cudaGetLastError();
+}
+
+// bf16 by head dim: the wgmma kernel at 64 and 128 (every full-width
+// model), the mma.sync kernel at 16 and 32 (smoke configs only)
+cudaError_t dispatch_bf16(int D, const void* q, const void* k, const void* v, void* o, int B,
+                          int S, int H, int KV, const int64_t* st, float scale, int window,
+                          float* lse, cudaStream_t stream) {
   switch (D) {
     case 16: return launch_mma<16>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
     case 32: return launch_mma<32>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
-    case 64: return launch_mma<64>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
-    case 128: return launch_mma<128>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, S, H, KV, st, scale, window, lse, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -406,8 +686,9 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 
 // q/k/v/o element strides in `strides`, 12 values: (batch, seq, head) for
 // q, k, v, o in that order; the head_dim axis must be contiguous, k and v
-// 16-byte aligned with strides that keep every row 16-byte aligned, and o's
-// rows 4-byte aligned (the bf16 kernel stores pairs).
+// 16-byte aligned with strides that keep every row 16-byte aligned (q too
+// in bf16 at D 64 and 128, which TMA reads: else cudaErrorInvalidValue),
+// and o's rows 4-byte aligned (the bf16 kernels store pairs).
 // window <= 0 means no sliding window.  lse: null, or a contiguous float32
 // (B, H, S) array that receives each query row's log-sum-exp.  Returns
 // cudaGetLastError().
@@ -421,6 +702,6 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (dtype == kFloat32)
     return dispatch_dim<float>(D, q, k, v, o, B, S, H, KV, strides, scale, window, l, s);
   if (dtype == kBFloat16)
-    return dispatch_mma(D, q, k, v, o, B, S, H, KV, strides, scale, window, l, s);
+    return dispatch_bf16(D, q, k, v, o, B, S, H, KV, strides, scale, window, l, s);
   return cudaErrorInvalidValue;
 }

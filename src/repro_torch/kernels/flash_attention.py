@@ -4,9 +4,14 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas
 ``flash_attention_bhsd``: f32 online softmax over kv tiles up to the causal
 limit, optional sliding window (``kj > qi - window``), GQA by ``h // G``;
 bf16 runs its products on the tensor cores (P rounded to bf16 before P·V),
-float32 on the CUDA cores.
+float32 on the CUDA cores.  Which kernel runs is :func:`variant`: bf16 at
+head dim 64 or 128 (every full-width model) on Hopper's warpgroup products
+(``wgmma``, operands brought by TMA), bf16 at 16 or 32 (smoke configs) on
+``mma.sync``, float32 on the CUDA cores.
 It reads q/k/v through their strides, so the model layout needs no copy,
-and masks the ragged tail, so any ``S`` works.
+and masks the ragged tail, so any ``S`` works; a q whose rows TMA cannot
+read (not 16-byte aligned: a view into a wider tensor) gets an aligned
+copy.
 
 Under training the forward also writes each query row's log-sum-exp, and
 the backward (``csrc/flash_attention_bwd.cu``, FA2-style) recomputes P a
@@ -32,6 +37,18 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# rows of the backward's padded lse and Δ scratch: S rounded up to this
+# (csrc/flash_attention_bwd.cu: padded_rows)
+BWD_PAD = 64
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel the C entry points choose for a dtype and head dim, as
+    ``chip_smoke.py`` names it: "wgmma" (bf16, D 64 or 128), "mma_sync"
+    (bf16, D 16 or 32) or "f32"."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    return "wgmma" if head_dim in (64, 128) else "mma_sync"
 
 
 def flash_attention_plain(
@@ -180,7 +197,8 @@ def launch(
 ) -> None:
     """Launch the CUDA kernel on q's current stream (writing each row's
     log-sum-exp into ``lse`` when given); raises on bad input or a refused
-    launch."""
+    launch.  q rows that are not 16-byte aligned (a view into a wider
+    tensor) are read from an aligned copy: TMA reads whole 16-byte units."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     _check("flash_attention", (("q", q), ("k", k), ("v", v), ("out", out)), q, k, window, lse)
@@ -189,7 +207,8 @@ def launch(
             f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
             f"v{tuple(v.shape)} out{tuple(out.shape)}"
         )
-    # k and v are read as 16-byte chunks; the bf16 kernel stores pairs of out
+    q = _build.aligned16(q)
+    # k and v are read as 16-byte units; the bf16 kernels store pairs of out
     for name, t, n in (("k", k, 16), ("v", v, 16), ("out", out, 4)):
         if not _build.rows_aligned(t, n):
             raise ValueError(f"flash_attention: {name} rows are not {n}-byte aligned")
@@ -222,7 +241,9 @@ def launch_bwd(
     """Launch the backward kernels (Δ, then dK/dV, then dQ) on q's current
     stream; raises on bad input or a refused launch.  Every operand's rows
     must be 16-byte aligned (the wrapper passes contiguous copies of any
-    that are not)."""
+    that are not).  The kernels' float32 scratch (Δ, and at bf16 D 64/128
+    also lse in log2 units, both padded to :data:`BWD_PAD` rows) is
+    allocated here."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq),
@@ -234,13 +255,14 @@ def launch_bwd(
     for name, t in named:
         if not _build.rows_aligned(t, 16):
             raise ValueError(f"flash_attention_bwd: {name} rows are not 16-byte aligned")
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    S_pad = -(-S // BWD_PAD) * BWD_PAD
+    scratch = torch.empty(2 * B * H * S_pad, dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
     # (batch, seq, head) strides of the eight operands: dims 0, 2, 1 of bhsd
     strides = _build.strides_arg([q, k, v, out, dout, dq, dk, dv], (0, 2, 1))
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _build.DTYPE_CODES[q.dtype], B, S, H, KV, D, strides, float(scale),
         int(window) if window is not None else 0, _build.stream_handle(q.device),
     )

@@ -74,8 +74,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, KV, S, D, window):
 
 
 def test_flash_kernel_reads_q_rows_that_are_not_16_byte_aligned(cuda):
-    """q as a view one element into a wider tensor: the bf16 kernel loads
-    such rows element by element instead of by cp.async."""
+    """q as a view one element into a wider tensor: TMA cannot read such
+    rows, so the wrapper hands the bf16 kernel an aligned copy."""
     rng = np.random.default_rng(5)
     B, S, H, KV, D = 2, 100, 4, 2, 64
     q = _randn(rng, (B, S, H, D + 1), torch.bfloat16, cuda)[..., 1:]
@@ -87,6 +87,119 @@ def test_flash_kernel_reads_q_rows_that_are_not_16_byte_aligned(cuda):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 1 / math.sqrt(D)
     ).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+# The wgmma kernels' tile edges (128-row query and key tiles in the forward,
+# 128-key or 128-row blocks over 64-row streamed tiles in the backward):
+# S one short of, at and one past a tile, two tiles less one; windows of
+# one key, one short of a tile, a whole tile and between tiles; D 64 and
+# 128; G 1, 4 and 48.
+WGMMA_EDGES = [
+    (1, 8, 2, 127, 128, None),
+    (1, 8, 2, 128, 128, None),
+    (1, 8, 2, 129, 128, None),
+    (1, 8, 2, 255, 128, None),
+    (1, 4, 4, 127, 64, None),
+    (1, 4, 4, 129, 64, None),
+    (1, 48, 1, 255, 128, None),
+    (1, 48, 1, 129, 64, None),
+    (1, 8, 2, 300, 128, 1),
+    (1, 8, 2, 300, 128, 127),
+    (1, 4, 4, 300, 64, 128),
+    (1, 48, 1, 300, 128, 200),
+    (1, 4, 1, 255, 64, 200),
+]
+
+
+def _edge_inputs(rng, fused, B, H, KV, S, D, dtype, device):
+    """q, k, v (B, S, heads, D), dout (B, S, H, D): on their own, or
+    (``fused``, at B 2) q, k and v as strided views of one (B, S, (H +
+    2 KV) D) tensor, as a fused QKV projection gives them."""
+    if fused:
+        x = _randn(rng, (B, S, (H + 2 * KV) * D), dtype, device)
+        q = x[..., :H * D].unflatten(-1, (H, D))
+        k = x[..., H * D:(H + KV) * D].unflatten(-1, (KV, D))
+        v = x[..., (H + KV) * D:].unflatten(-1, (KV, D))
+    else:
+        q, k, v = (_randn(rng, (B, S, n, D), dtype, device) for n in (H, KV, KV))
+    return q, k, v, _randn(rng, (B, S, H, D), dtype, device)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H,KV,S,D,window", WGMMA_EDGES)
+def test_flash_wgmma_forward_at_the_tile_edges(cuda, fused, B, H, KV, S, D, window):
+    """The bf16 forward (the wgmma kernel) and its row log-sum-exp against
+    the plain version's at the tiles' edges."""
+    B = 2 if fused else B
+    assert fa_mod.variant(torch.bfloat16, D) == "wgmma"
+    rng = np.random.default_rng(S + D + H)
+    q, k, v, _ = _edge_inputs(rng, fused, B, H, KV, S, D, torch.bfloat16, cuda)
+    scale = 1 / math.sqrt(D)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, window=window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = torch.empty_like(qt)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    fa_mod.launch(qt, kt, vt, out, scale, window, lse)
+    want, want_lse = fa_mod.flash_attention_plain_lse(qt, kt, vt, scale, window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert _rel_err(lse, want_lse) <= 1e-4
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,H,KV,S,D,window", WGMMA_EDGES)
+def test_flash_wgmma_backward_at_the_tile_edges(cuda, fused, B, H, KV, S, D, window):
+    """The bf16 backward kernels (wgmma) against the explicit plain backward
+    on the forward kernel's out and lse, and the gradients through the
+    wrapper's Function against the plain version's autograd, at the tiles'
+    edges."""
+    B = 2 if fused else B
+    rng = np.random.default_rng(S + D + H + 1)
+    q, k, v, dout = _edge_inputs(rng, fused, B, H, KV, S, D, torch.bfloat16, cuda)
+    scale = 1 / math.sqrt(D)
+    qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out = torch.empty_like(qt)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    fa_mod.launch(qt, kt, vt, out, scale, window, lse)
+    got = [torch.empty_like(t) for t in (qt, kt, vt)]
+    fa_mod.launch_bwd(qt, kt, vt, out, lse, dt, *got, scale, window)
+    want = fa_mod.flash_attention_bwd_plain(qt, kt, vt, out, lse, dt, scale, window)
+    torch.cuda.synchronize()
+    for name, g, ref in zip("qkv", got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _rel_err(g, ref) <= 2e-2, f"d{name}"
+
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    grads = torch.autograd.grad(ops.flash_attention(*leaves, window=window), leaves, dout)
+    plain_grads = torch.autograd.grad(_flash_plain(window, scale)(*leaves), leaves, dout)
+    for name, g, ref in zip("qkv", grads, plain_grads):
+        assert _rel_err(g, ref) <= 2e-2, f"d{name} through the Function"
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window", [
+    (2, 32, 8, 300, 128, None),   # qwen3-8b's heads
+    (1, 48, 1, 257, 64, 100),
+])
+def test_flash_backward_kernels_are_deterministic(cuda, B, H, KV, S, D, window):
+    """Two backward calls on the same inputs give bit-equal dq, dk and dv:
+    every output element has one owner and no atomics."""
+    rng = np.random.default_rng(S)
+    q, k, v, dout = (_randn(rng, (B, n, S, D), torch.bfloat16, cuda) for n in (H, KV, KV, H))
+    scale = 1 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    fa_mod.launch(q, k, v, out, scale, window, lse)
+    runs = []
+    for _ in range(2):
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        fa_mod.launch_bwd(q, k, v, out, lse, dout, *grads, scale, window)
+        runs.append(grads)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", *runs):
+        assert torch.equal(a, b), f"d{name}"
 
 
 def _split_edge_lengths(B, max_pages, page_size, split_len):

@@ -241,8 +241,10 @@ def test_tpot_noise_is_the_largest_spread_clipped():
 
 def test_step_busy_counts_each_kernel_in_the_step_it_starts_in():
     """Phase 6's per-step device-busy ms: each kernel's device time goes to
-    the traced step whose host range holds its start; the device side of
-    the ranges is not a kernel; the share of kernel time the ranges hold."""
+    the traced step whose range holds its start on the card's clock (the
+    range's device side), whatever the host side says; the device side of
+    the ranges is not a kernel; the share of kernel time the ranges hold;
+    the least and largest lag of a device side after its host side."""
     from types import SimpleNamespace as NS
 
     from torch.autograd import DeviceType
@@ -252,16 +254,24 @@ def test_step_busy_counts_each_kernel_in_the_step_it_starts_in():
                   self_device_time_total=us, is_user_annotation=note)
 
     cpu, cuda, label = DeviceType.CPU, DeviceType.CUDA, "chip_smoke_decode_step_"
-    events = [ev(cpu, label + "1", 200, 300), ev(cpu, label + "0", 0, 100),
+    # step 1's last kernel (255-265) starts after its host range on the
+    # host's clock; on the card's clock it is inside the step
+    events = [ev(cpu, label + "1", 200, 250), ev(cpu, label + "0", 0, 100),
               ev(cpu, "aten::mm", 10, 20),
+              ev(cuda, label + "1", 210, 265, us=55.0, note=True),
               ev(cuda, label + "0", 12, 90, us=78.0, note=True),
               ev(cuda, "gemm", 12, 40, us=28.0), ev(cuda, "paged_split", 50, 90, us=40.0),
-              ev(cuda, "gemm", 210, 260, us=50.0)]
-    per_step, cover = cs_step_busy(events)
+              ev(cuda, "gemm", 210, 250, us=40.0), ev(cuda, "gemm", 255, 265, us=10.0)]
+    per_step, cover, lag = cs_step_busy(events)
     assert per_step == [pytest.approx(0.068), pytest.approx(0.05)]
     assert cover == pytest.approx(1.0)
-    per_step, cover = cs_step_busy(events + [ev(cuda, "late", 150, 160, us=10.0)])
+    assert lag == (pytest.approx(0.010), pytest.approx(0.012))
+    per_step, cover, _ = cs_step_busy(events + [ev(cuda, "late", 150, 160, us=10.0)])
     assert cover == pytest.approx(118 / 128)
+    # a range whose device side is missing is not a step
+    no_side = [e for e in events if not (e.is_user_annotation and e.name == label + "1")]
+    per_step, cover, _ = cs_step_busy(no_side)
+    assert len(per_step) == 1 and cover == pytest.approx(68 / 118)
 
 
 def cs_step_busy(events):

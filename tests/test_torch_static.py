@@ -163,12 +163,23 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     ("flash_attention.cu", "src/repro/kernels/flash_attention.py"),
     ("paged_attention.cu", "src/repro/kernels/paged_attention.py"),
     ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py"),
+    # the backward stands for the reference's autodiff of its attention
+    ("flash_attention_bwd.cu", "the gradient the JAX package takes of its attention"),
 ])
 def test_each_cuda_source_opens_with_its_note(name, replaces):
     head = (PORT / "kernels" / "csrc" / name).read_text().split("#include")[0]
     assert f"Replaces: {replaces}" in head
     assert "What bounds it on the H100" in head
     assert "Design:" in head
+
+
+def test_the_hopper_header_opens_with_its_note():
+    """hopper.cuh, the TMA, mbarrier and wgmma pieces both flash kernels
+    share, says what it holds and how its descriptors match the swizzle."""
+    head = (PORT / "kernels" / "csrc" / "hopper.cuh").read_text().split("#include")[0]
+    for what in ("TMA", "mbarrier", "wgmma", "setmaxnreg", "128-byte swizzle", "K-major",
+                 "MN-major", "Fragments"):
+        assert what in head, what
 
 
 def test_build_needs_nvcc_and_says_so(monkeypatch):
