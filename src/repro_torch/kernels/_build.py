@@ -146,7 +146,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p] * 10 + [i] * 7 + [p, i64, p]
     elif name == "ssm_scan_bwd":
         fn = lib.repro_ssm_scan_bwd
-        fn.argtypes = [p] * 22 + [i] * 7 + [p, i64, p]
+        fn.argtypes = [p] * 18 + [i] * 6 + [p, i64, p]
     else:
         raise ValueError(f"unknown kernel {name!r}")
     fn.restype = ctypes.c_int

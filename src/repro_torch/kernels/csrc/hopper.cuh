@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): TMA tile loads into
+// (flash_attention.cu, flash_attention_bwd.cu) and of the float32 scan
+// backward (ssm_scan_bwd.cu: f32_map, sw128): TMA tile loads into
 // 128-byte-swizzled shared memory that complete on mbarriers, the
 // warpgroup product wgmma.mma_async m64nNk16 bf16 -> f32 (A from shared
 // memory or from registers, B from shared memory, K-major or MN-major),
@@ -116,6 +117,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Order this thread's shared-memory reads and writes before the async
+// proxy's (a TMA load that then refills the same bytes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -373,6 +380,37 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int D, int S, int heads
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D map of a float32 tensor read in place: dims innermost first, the
+// element strides of dims 1-3, boxes of `box` elements, a row of 32 floats
+// (box[0], 128 bytes) 128-byte swizzled; elements out of the tensor read as
+// zeros.  False if TMA cannot read it (a base or a stride not a multiple of
+// 16 bytes).
+inline bool f32_map(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                    const int64_t (&strides)[3], const uint32_t (&box)[4]) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || box[0] != 32)
+    return false;
+  cuuint64_t d[4], st[3];
+  for (int i = 0; i < 4; ++i) d[i] = dims[i];
+  for (int i = 0; i < 3; ++i) {  // a stride of a dim of size 1 is never used
+    const int64_t bytes = dims[i + 1] == 1 ? 16 : strides[i] * 4;
+    if (bytes <= 0 || bytes % 16 != 0) return false;
+    st[i] = static_cast<cuuint64_t>(bytes);
+  }
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), d, st, bx, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Element (r, c) of a staged f32_map box, 1024-byte aligned: rows of 32
+// floats, the 16-byte chunk c / 4 of row r at chunk c / 4 ^ r % 8.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (r << 5) | ((((c >> 2) ^ r) & 7) << 2) | (c & 3);
 }
 
 // The shared memory of a block, rounded up to the 1024-byte alignment of a

@@ -35,7 +35,8 @@ MAX_CHUNK = 128  # steps per chunk the kernel stages in shared memory
 P_MULTIPLE = 16  # the head dim is a whole number of 16-row tensor-core tiles
 MAX_STATE = 256  # state size N the kernel's shared-memory budget holds
 MAX_BWD_P = 64  # head dim the backward kernel stages whole
-BWD_GROUP = 2048  # (p, n) state elements a block of the backward's state pass walks
+BWD_STATE_COLS = 64  # state columns a block of the backward's state pass carries
+BWD_BOX = 32  # the backward's TMA boxes: head dim and state size in whole boxes
 
 
 def _clip_exp(t: torch.Tensor) -> torch.Tensor:
@@ -310,6 +311,22 @@ def launch(
     _build.check(rc, "ssm_scan")
 
 
+def bwd_scratch(Bb: int, S: int, H: int, P: int, N: int, chunk: int,
+                device) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' scratch, float32: each chunk's own state's
+    gradient (B, nc, H, P, N), written once by the reverse state pass and
+    read by the chunk and head-sum passes; the chunk decay's gradient in
+    fixed-order sums, one per block of BWD_STATE_COLS state columns (B, nc,
+    H, ceil(N / BWD_STATE_COLS)); each chunk's dA share (B, nc, H).  Nothing
+    per head and per step: the heads' shares of dB and dC are summed on
+    chip."""
+    nc = S // chunk
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((Bb, nc, H, P, N), **f32),
+            torch.empty((Bb, nc, H, -(-N // BWD_STATE_COLS)), **f32),
+            torch.empty((Bb, nc, H), **f32))
+
+
 def launch_bwd(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -338,33 +355,36 @@ def launch_bwd(
             raise ValueError(f"ssm_scan backward: {name} must be float32 on x's device")
     if dy.shape != x.shape or (dfinal is not None and dfinal.shape != (Bb, H, P, N)):
         raise ValueError("ssm_scan backward: gradient shapes do not fit the outputs")
-    nc = S // chunk
-    ngroups = -(-P * N // BWD_GROUP)
+    # TMA reads boxes of 32 columns: a head dim or a state size that is not
+    # a multiple of 32 runs zero-padded (zero columns add nothing to any
+    # gradient), and the gradients are cut back
+    Pp, Np = -(-P // BWD_BOX) * BWD_BOX, -(-N // BWD_BOX) * BWD_BOX
+    if (Pp, Np) != (P, N):
+        def pad(t, *widths):  # zeros after the last len(widths) dims
+            return torch.nn.functional.pad(t, [a for w in reversed(widths) for a in (0, w)])
+
+        dx, ddt, dA, dB, dC = launch_bwd(
+            pad(x, Pp - P), dt, A, pad(B_, Np - N), pad(C_, Np - N), chunk, cb,
+            pad(states, Pp - P, Np - N), decay, pad(dy, Pp - P),
+            None if dfinal is None else pad(dfinal, Pp - P, Np - N))
+        return (dx[..., :P].contiguous(), ddt, dA, dB[..., :N].contiguous(),
+                dC[..., :N].contiguous())
+    # TMA reads x, B_ and C_ in place: their rows must start on 16 bytes
+    x, B_, C_ = (_build.aligned16(t) for t in (x, B_, C_))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((Bb, S, H, P), **f32)
     ddt = torch.empty((Bb, S, H), **f32)
     dA = torch.empty((H,), **f32)
     dB = torch.empty((Bb, S, N), **f32)
     dC = torch.empty((Bb, S, N), **f32)
-    # scratch: each chunk's entering-state gradient (then its own state's),
-    # the decay gradient's block sums, each chunk's dA share, the heads'
-    # shares of d(C·Bᵀ), dC and dB, and their sums over the heads
-    dstates = torch.empty_like(states)
-    dpart = torch.empty((Bb, nc, H, ngroups), **f32)
-    da_part = torch.empty((Bb, nc, H), **f32)
-    dcb_h = torch.empty((Bb, nc, H, chunk, chunk), **f32)
-    g_h = torch.empty((Bb, nc, H, chunk, 2 * N), **f32)
-    dcb = torch.empty((Bb, nc, chunk, chunk), **f32)
-    gsum = torch.empty((Bb, nc, chunk, 2 * N), **f32)
+    scratch = bwd_scratch(Bb, S, H, P, N, chunk, x.device)
     fn = _build.load("ssm_scan_bwd").repro_ssm_scan_bwd
     strides = _build.strides_arg([x, dt, B_, C_], (0, 1))
-    aligned = all(_build.rows_aligned(t, 16) for t in (x, B_, C_))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = fn(
         *(ptr(t) for t in (x, dt, A, B_, C_, cb, states, decay, dy, dfinal, dx, ddt, dA, dB, dC,
-                           dstates, dpart, da_part, dcb_h, g_h, dcb, gsum)),
-        Bb, S, H, P, N, chunk, int(aligned), strides, x.stride(2),
-        _build.stream_handle(x.device),
+                           *scratch)),
+        Bb, S, H, P, N, chunk, strides, x.stride(2), _build.stream_handle(x.device),
     )
     _build.check(rc, "ssm_scan_bwd")
     return dx, ddt, dA, dB, dC

@@ -134,6 +134,150 @@ def test_ssm_bwd_plain_matches_jax_grad_and_autograd(chunk, final):
         assert rel(g, wt) <= TOL, f"d{name} against autograd"
 
 
+def _clip_exp(t):
+    return np.exp(np.clip(t, -60.0, 0.0))
+
+
+def scan_bwd_dbc_by_design(x, dt, A, Bm, Cm, chunk, dy, dfinal, rows, cols):
+    """dB and dC as the backward kernels form them (``csrc/ssm_scan_bwd.cu``),
+    in float64 numpy.  The reverse state pass (``state_bwd_kernel``, ``cols``
+    state columns a block) forms each chunk's own-state gradient G_{c+1}
+    inside the recurrence, G_c = Σ_i E(cs_i) dy_i ⊗ C_i + G_{c+1} E(cs_L).
+    Then a block of ``rows`` rows R of a chunk (``dbc_heads_kernel``) walks
+    the heads in order: d(C·Bᵀ) = Σ_h (dy_h x_hᵀ) ⊙ E_h ⊙ dt_h on its cross
+    of the lower triangle (R's rows left of and on the diagonal, R's columns
+    below it), and the state terms as one contraction over (head, p):
+    [E(cs) ⊙ dy]_(R, HP)·[entering]_(HP, N) and [w ⊙ x]_(R, HP)·[G]_(HP, N);
+    then dC[R] += d(C·Bᵀ)[R, :]·B and dB[R] += d(C·Bᵀ)[:, R]ᵀ·C.  Returns
+    (dB, dC, how many blocks formed each (chunk, i, j) of the lower
+    triangle)."""
+    x, dt, A, Bm, Cm, dy = (np.asarray(a, np.float64) for a in (x, dt, A, Bm, Cm, dy))
+    Bb, S, H, P = x.shape
+    N, L = Bm.shape[-1], chunk
+    nc = S // L
+    xr, dyr = x.reshape(Bb, nc, L, H, P), dy.reshape(Bb, nc, L, H, P)
+    Br, Cr = Bm.reshape(Bb, nc, L, N), Cm.reshape(Bb, nc, L, N)
+    cs = np.cumsum(dt.reshape(Bb, nc, L, H) * A, axis=2)  # (B, nc, L, H)
+    dt_r = dt.reshape(Bb, nc, L, H)
+
+    own = np.zeros((Bb, nc, H, P, N))
+    for n0 in range(0, N, cols):  # a state_bwd block: its columns, last chunk first
+        g = np.zeros((Bb, H, P, N))[..., n0:n0 + cols] if dfinal is None else \
+            np.asarray(dfinal, np.float64)[..., n0:n0 + cols]
+        for c in reversed(range(nc)):
+            own[:, c, ..., n0:n0 + cols] = g
+            enter = np.einsum("bih,bihp,bin->bhpn", _clip_exp(cs[:, c]), dyr[:, c],
+                              Cr[:, c, :, n0:n0 + cols])
+            g = enter + g * _clip_exp(cs[:, c, -1])[..., None, None]
+
+    entering = np.zeros((Bb, nc, H, P, N))
+    carry = np.zeros((Bb, H, P, N))
+    for c in range(nc):
+        entering[:, c] = carry
+        w = _clip_exp(cs[:, c, -1:] - cs[:, c]) * dt_r[:, c]  # (B, L, H)
+        carry = carry * _clip_exp(cs[:, c, -1])[..., None, None] + np.einsum(
+            "bjh,bjhp,bjn->bhpn", w, xr[:, c], Br[:, c])
+
+    dB, dC = np.zeros((Bb, nc, L, N)), np.zeros((Bb, nc, L, N))
+    formed = np.zeros((nc, L, L), int)
+    ii, jj = np.arange(L)[:, None], np.arange(L)[None, :]
+    for b in range(Bb):
+        for c in range(nc):
+            for r0 in range(0, L, rows):
+                xe, de = min(r0 + rows, L), range(r0, min(r0 + rows, L))
+                cross = ((ii >= r0) & (ii < xe)) | ((jj >= r0) & (jj < xe) & (ii >= xe))
+                cross &= jj <= ii
+                formed[c] += cross * (b == 0)
+                dcb = np.zeros((L, L))
+                for h in range(H):
+                    e = _clip_exp(cs[b, c, :, h][:, None] - cs[b, c, :, h][None, :])
+                    dcb += np.where(cross, dyr[b, c, :, h] @ xr[b, c, :, h].T * e
+                                    * dt_r[b, c, :, h][None, :], 0.0)
+                ew = _clip_exp(cs[b, c, de])  # (rows, H)
+                ww = _clip_exp(cs[b, c, -1] - cs[b, c, de]) * dt_r[b, c, de]
+                dC[b, c, de] = ((ew[..., None] * dyr[b, c, de]).reshape(len(de), H * P)
+                                @ entering[b, c].reshape(H * P, N) + dcb[de] @ Br[b, c])
+                dB[b, c, de] = ((ww[..., None] * xr[b, c, de]).reshape(len(de), H * P)
+                                @ own[b, c].reshape(H * P, N) + dcb[:, de].T @ Cr[b, c])
+    return dB.reshape(Bb, S, N), dC.reshape(Bb, S, N), formed
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("chunk,rows", [(8, 4), (40, 32), (40, 16)])
+def test_ssm_bwd_head_sums_by_row_tiles_match_the_plain_backward_and_jax_grad(chunk, rows,
+                                                                             final):
+    """The algebra the backward kernels rely on: the heads' shares of dB
+    and dC summed on chip, d(C·Bᵀ) formed once per lower-triangle element
+    by row tiles (the last one ragged at chunk 40), the state terms as one
+    contraction over (head, p), the own-state gradients inside the reverse
+    recurrence (two column blocks), against ssm_scan_bwd_plain and jax.grad
+    of the reference's ssd_chunked."""
+    rng = np.random.default_rng(chunk + rows + final)
+    args = scan_inputs(rng, S=80)
+    B, S, H, P = args[0].shape
+    N = args[3].shape[-1]
+    dy = draw(rng, B, S, H, P)
+    dfinal = draw(rng, B, H, P, N) if final else None
+
+    def loss(*a):
+        y, fin = ssd_chunked(*a, chunk)
+        return jnp.sum(y * dy) + (jnp.sum(fin * dfinal) if final else 0.0)
+
+    want_jax = jax.grad(loss, argnums=(3, 4))(*args)
+    plain = [torch.as_tensor(a) for a in args]
+    entering = ssm_mod.ssm_scan_plain_states(*plain, chunk)
+    want = ssm_mod.ssm_scan_bwd_plain(*plain, chunk, entering, torch.as_tensor(dy),
+                                      None if dfinal is None else torch.as_tensor(dfinal))[3:]
+    dB, dC, formed = scan_bwd_dbc_by_design(*args, chunk, dy, dfinal, rows, cols=2)
+    tile = np.arange(chunk) // rows
+    twice = 1 + (tile[:, None] != tile[None, :])
+    assert (formed == np.tril(twice)).all()
+    for name, got, wp, wj in zip(("B_", "C_"), (dB, dC), want, want_jax):
+        assert rel(got, wp) <= TOL, f"d{name} against ssm_scan_bwd_plain"
+        assert rel(got, np.asarray(wj)) <= TOL, f"d{name} against jax.grad"
+
+
+def test_launch_bwd_allocates_no_scratch_per_head_and_step(monkeypatch):
+    """launch_bwd's scratch (``bwd_scratch``): each chunk's own state's
+    gradient, the decay gradient's block sums and the dA shares; no
+    (B, nc, H, L, ·) tensor, at mamba2-370m's training shape and through
+    launch_bwd itself (its library replaced by a recorder)."""
+    B, S, H, P, N, L = 4, 1024, 32, 64, 128, 128
+    nc = S // L
+    shapes = [tuple(t.shape) for t in ssm_mod.bwd_scratch(B, S, H, P, N, L, "meta")]
+    assert shapes == [(B, nc, H, P, N), (B, nc, H, 2), (B, nc, H)]
+
+    calls, made = [], []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made.append(tuple(t.shape))
+        return t
+
+    class Lib:
+        @staticmethod
+        def repro_ssm_scan_bwd(*a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    Bs, Ss, Hs, Ps, Ns, Ls = 2, 64, 3, 32, 32, 16
+    rng = np.random.default_rng(5)
+    x, dt, A, Bm, Cm = (torch.as_tensor(a) for a in scan_inputs(rng, Bs, Ss, Hs, Ps, Ns))
+    fwd_scratch = ssm_mod.scratch(Bs, Ss, Hs, Ps, Ns, Ls, "cpu")
+    made.clear()
+    grads = ssm_mod.launch_bwd(x, dt, A, Bm, Cm, Ls, *fwd_scratch, torch.zeros_like(x), None)
+    assert len(calls) == 1 and len(calls[0]) == 18 + 6 + 3
+    assert [tuple(g.shape) for g in grads] == [tuple(t.shape) for t in (x, dt, A, Bm, Cm)]
+    ncs = Ss // Ls
+    assert made == [(Bs, Ss, Hs, Ps), (Bs, Ss, Hs), (Hs,), (Bs, Ss, Ns), (Bs, Ss, Ns),
+                    (Bs, ncs, Hs, Ps, Ns), (Bs, ncs, Hs, 1), (Bs, ncs, Hs)]
+    assert not any(s[:4] == (Bs, ncs, Hs, Ls) for s in made)
+
+
 def test_ssm_plain_states_are_the_carry_entering_each_chunk():
     """What the forward kernel leaves in its states scratch: the state
     entering each chunk, the last chunk's carried on to the final state."""

@@ -638,6 +638,9 @@ def test_flash_backward_kernel_matches_its_plain_backward(cuda, dtype, B, H, KV,
     (1, 256, 32, 64, 128, 128),   # mamba2-370m's heads
     (1, 100, 3, 16, 20, 25),      # a chunk that is no multiple of 8 or 16
     (2, 128, 64, 64, 64, 128),    # zamba2-1.2b's heads
+    (4, 1024, 32, 64, 128, 128),  # mamba2-370m's training shape
+    (2, 128, 4, 32, 32, 128),     # one chunk: S = L
+    (1, 256, 4, 64, 256, 128),    # N 256: one ring stage a head in dbc_heads
 ])
 def test_ssm_scan_backward_kernel_matches_its_plain_backward(cuda, final, B, S, H, P, N, chunk):
     """The backward kernels on the forward kernel's scratch against the
@@ -665,6 +668,36 @@ def test_ssm_scan_backward_kernel_matches_its_plain_backward(cuda, final, B, S, 
     for name, g, ref in zip(("x", "dt", "A", "B_", "C_"), got, want):
         assert torch.isfinite(g).all()
         assert _rel_err(g, ref) <= SCAN_TOL, f"d{name}"
+
+
+def test_ssm_scan_backward_kernel_is_deterministic_on_packed_inputs(cuda):
+    """x, B, C and dt as views of one packed projection, x one element off
+    16 bytes (the launcher copies it for the bulk copies): two backward
+    calls are bit-equal, and equal the plain backward within the scan's
+    tolerance."""
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    B, S, H, P, N, chunk = 2, 512, 8, 64, 128, 128
+    rng = np.random.default_rng(17)
+    width = 1 + H * P + 2 * N + H
+    packed = _randn(rng, (B, S, width), torch.float32, cuda)
+    x = packed[..., 1:1 + H * P].unflatten(-1, (H, P))
+    Bm, Cm = packed[..., 1 + H * P:1 + H * P + N], packed[..., 1 + H * P + N:1 + H * P + 2 * N]
+    dt = torch.nn.functional.softplus(packed[..., -H:])
+    A = -torch.exp(_randn(rng, (H,), torch.float32, cuda) * 0.5)
+    dy = _randn(rng, (B, S, H, P), torch.float32, cuda)
+    dfinal = _randn(rng, (B, H, P, N), torch.float32, cuda)
+    y, fin = torch.empty((B, S, H, P), device=cuda), torch.empty((B, H, P, N), device=cuda)
+    scratch = ssm_mod.scratch(B, S, H, P, N, chunk, cuda)
+    ssm_mod.launch(x, dt, A, Bm, Cm, chunk, y, fin, *scratch)
+    first = ssm_mod.launch_bwd(x, dt, A, Bm, Cm, chunk, *scratch, dy, dfinal)
+    second = ssm_mod.launch_bwd(x, dt, A, Bm, Cm, chunk, *scratch, dy, dfinal)
+    entering = ssm_mod.ssm_scan_plain_states(x, dt, A, Bm, Cm, chunk)
+    want = ssm_mod.ssm_scan_bwd_plain(x, dt, A, Bm, Cm, chunk, entering, dy, dfinal)
+    torch.cuda.synchronize()
+    for name, a, b, ref in zip(("x", "dt", "A", "B_", "C_"), first, second, want):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+        assert _rel_err(a, ref) <= SCAN_TOL, f"d{name}"
 
 
 def test_no_grad_calls_take_the_direct_path_and_count_one_launch(cuda):
