@@ -8,7 +8,9 @@ the plain version on a card.  Any other device raises.
 Each wrapper counts its kernel launches in :data:`LAUNCHES`, by its own
 name (CPU calls are not counted), so a run can show that its main path
 went through the kernels: set the counts to 0 with :func:`reset_launches`,
-run, read :func:`launches`.
+run, read :func:`launches`.  Beside the counter, :func:`span` names a
+stretch of the engine's or the model's host work for a torch profiler:
+a range while a profiler runs, a shared no-op otherwise.
 
 The dry run (:mod:`repro_torch.launch.dryrun`) takes a third route for
 fake tensors (``FakeTensorMode``): a fake CUDA tensor, or a fake one owned
@@ -44,10 +46,12 @@ twice, and so counts two launches (the backward one).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.profiler as _profiler
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
@@ -436,3 +440,21 @@ def reset_launches() -> None:
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+_NO_SPAN = contextlib.nullcontext()
+# an op-scope profiler range, not a user annotation (``record_function``):
+# the profiler gives each kernel to its innermost user annotation alone,
+# so a user range here would leave a caller's range around the call (a
+# benchmark's step range, say) with no kernel on its device side
+_Range = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a torch profiler runs, else
+    one shared no-op: off, it costs a read of the profiler's module flag.
+    The range lands on the profiler's clock, beside the device operations
+    the code inside it launches."""
+    if _profiler._is_profiler_enabled:
+        return _Range(name)
+    return _NO_SPAN

@@ -34,6 +34,12 @@ loop.
 Caches are updated in place (see :mod:`repro_torch.models.attention` and
 :mod:`repro_torch.models.ssm`); the methods still return them, as the
 reference's do.
+
+The serving paths (``prefill``, the decode steps, ``scatter_prefill``)
+name their parts for a torch profiler (:func:`repro_torch.kernels.ops.span`):
+``model.embed``, one ``model.attention`` (norm, attention, residual add)
+and one ``model.mlp`` (or MoE) a block, one ``model.ssm`` a Mamba2 layer,
+``model.head`` and ``model.scatter``.  The training paths name none.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.ops import span
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -361,43 +368,51 @@ class Model:
         ``embeds`` (a stub frontend's output) takes the place of
         ``embed(tokens)``, cast to the config's dtype."""
         cfg = self.cfg
-        if embeds is None:
-            x = self.embed(params, tokens)
-        else:
-            x = embeds.to(DTYPES[cfg.dtype])
+        with span("model.embed"):
+            if embeds is None:
+                x = self.embed(params, tokens)
+            else:
+                x = embeds.to(DTYPES[cfg.dtype])
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         eps = cfg.norm_eps
         caches = []
         for lp in self._blocks(params):
             if cfg.arch_type in BLOCK_TYPES:
-                a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps), positions,
-                                     self.kv_hint)
-                x = self._ffn_residual(lp, x + settle(a))
+                with span("model.attention"):
+                    a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps),
+                                         positions, self.kv_hint)
+                    x = x + settle(a)
+                with span("model.mlp"):
+                    x = self._ffn_residual(lp, x)
             elif cfg.arch_type == "ssm":
-                y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
-                x = x + settle(y)
+                with span("model.ssm"):
+                    y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
+                    x = x + settle(y)
             else:  # hybrid superblock: Mamba2 sublayers, then the shared attention
                 c = {}
                 for j in range(cfg.shared_attn_every):
                     mp = lp[f"mamba_{j}"]
-                    y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(
-                        mp, cfg, rmsnorm(x, mp["ln"], eps), lengths
-                    )
-                    x = x + settle(y)
+                    with span("model.ssm"):
+                        y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(
+                            mp, cfg, rmsnorm(x, mp["ln"], eps), lengths
+                        )
+                        x = x + settle(y)
                 shared = params["shared_attn"]
-                a, c["attn"] = _attn_prefill(
-                    shared, cfg, rmsnorm(x, shared["ln"], eps), positions, self.kv_hint
-                )
-                x = x + settle(a)
+                with span("model.attention"):
+                    a, c["attn"] = _attn_prefill(
+                        shared, cfg, rmsnorm(x, shared["ln"], eps), positions, self.kv_hint
+                    )
+                    x = x + settle(a)
             caches.append(c)
         cache = {f"dense_{i}": caches[i] for i in range(self.n_dense)}
         cache["layers"] = _stack(caches[self.n_dense:])
-        if lengths is None:
-            last = x[:, -1:]
-        else:
-            last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None, :]
-        return self.logits(params, last), cache
+        with span("model.head"):
+            if lengths is None:
+                last = x[:, -1:]
+            else:
+                last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None, :]
+            return self.logits(params, last), cache
 
     # ----------------------------------------------------------------- decode --
     def _layer_cache(self, batch: int, device: torch.device, attn_cache) -> Params:
@@ -530,24 +545,31 @@ class Model:
                 return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos, rows)[0]
             return decode(p, cfg, h, lc, pos, rows, valid)[0]
 
-        x = self.embed(params, token)
+        with span("model.embed"):
+            x = self.embed(params, token)
         for lp, lc in zip(self._blocks(params), self._blocks(cache)):
             if cfg.arch_type in BLOCK_TYPES:
-                a = attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc)
-                x = self._ffn_residual(lp, x + settle(a))
+                with span("model.attention"):
+                    x = x + settle(attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc))
+                with span("model.mlp"):
+                    x = self._ffn_residual(lp, x)
             elif cfg.arch_type == "ssm":
-                y, _ = ssm_mod.ssm_decode(lp, cfg, rmsnorm(x, lp["ln"], eps), lc, rows)
-                x = x + settle(y)
+                with span("model.ssm"):
+                    y, _ = ssm_mod.ssm_decode(lp, cfg, rmsnorm(x, lp["ln"], eps), lc, rows)
+                    x = x + settle(y)
             else:  # hybrid superblock
                 for j in range(cfg.shared_attn_every):
                     mp = lp[f"mamba_{j}"]
-                    y, _ = ssm_mod.ssm_decode(
-                        mp, cfg, rmsnorm(x, mp["ln"], eps), lc[f"mamba_{j}"], rows
-                    )
-                    x = x + settle(y)
+                    with span("model.ssm"):
+                        y, _ = ssm_mod.ssm_decode(
+                            mp, cfg, rmsnorm(x, mp["ln"], eps), lc[f"mamba_{j}"], rows
+                        )
+                        x = x + settle(y)
                 shared = params["shared_attn"]
-                x = x + settle(attend(shared, rmsnorm(x, shared["ln"], eps), lc["attn"]))
-        return self.logits(params, x), cache
+                with span("model.attention"):
+                    x = x + settle(attend(shared, rmsnorm(x, shared["ln"], eps), lc["attn"]))
+        with span("model.head"):
+            return self.logits(params, x), cache
 
     # ------------------------------------------------------ prefill scatter --
     def scatter_prefill(
@@ -564,7 +586,8 @@ class Model:
         covering >= ``length`` tokens — is given), in place.  ``length`` is
         the true prompt length; padding rows past it are never copied, and
         fixed-shape SSM leaves (conv tail, state) are copied whole."""
-        return _scatter_node(cache, prefill_cache, slot, length, False, page_ids)
+        with span("model.scatter"):
+            return _scatter_node(cache, prefill_cache, slot, length, False, page_ids)
 
 
 # -- prefill-scatter helpers (admit path) -------------------------------------

@@ -32,6 +32,13 @@ in the reference, which drives ring caches through ``Model.prefill`` and
 The engine runs on the device its params live on.  Sampling happens on the
 host and is identical to the reference: ``temperature == 0`` is argmax,
 otherwise temperature/top-k sampling from the ``rng`` passed in.
+
+Each call names its phases for a torch profiler
+(:func:`repro_torch.kernels.ops.span`; no-ops without one):
+``engine.admit`` / ``engine.step`` around the call, and inside it
+``.prepare`` (pages, page tables, the tokens' copy to the device),
+``.model`` (the model call), ``.sync`` (the logits' copy back, which
+waits for the device) and ``.sample``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import span
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model
 from repro_torch.obs.metrics import percentile_summary
@@ -200,65 +208,68 @@ class Engine:
         Raises :class:`OutOfPages` (paged backend) when the pool cannot hold
         the context plus one decode token; the request is left untouched
         for the caller to retry later."""
-        t_admit = time.monotonic()
-        ctx = np.asarray(req.prompt, np.int32)
-        if req.out_tokens:  # resuming after preemption
-            ctx = np.concatenate([ctx, np.asarray(req.out_tokens, np.int32)])
-        L = int(ctx.size)
-        if L < 1:
-            raise ValueError("empty prompt")
-        if L + 1 > self.max_len:
-            raise ValueError(
-                f"context length {L} does not fit max_len={self.max_len}"
-            )
-        slot = self.slots.index(None)
-        if self.pool is not None:
-            self.pool.admit(req.rid)
+        with span("engine.admit"):
+            t_admit = time.monotonic()
+            with span("engine.admit.prepare"):
+                ctx = np.asarray(req.prompt, np.int32)
+                if req.out_tokens:  # resuming after preemption
+                    ctx = np.concatenate([ctx, np.asarray(req.out_tokens, np.int32)])
+                L = int(ctx.size)
+                if L < 1:
+                    raise ValueError("empty prompt")
+                if L + 1 > self.max_len:
+                    raise ValueError(
+                        f"context length {L} does not fit max_len={self.max_len}"
+                    )
+                slot = self.slots.index(None)
+                if self.pool is not None:
+                    self.pool.admit(req.rid)
+                    try:
+                        # context + room for the first decode write
+                        self.pool.append_tokens(req.rid, L + 1)
+                    except OutOfPages:
+                        self.pool.release(req.rid)
+                        raise
+                try:
+                    toks = np.zeros((1, -(-L // self.pad_to) * self.pad_to), np.int32)
+                    toks[0, :L] = ctx
+                    tokens = torch.as_tensor(toks, dtype=torch.int64, device=self.device)
+                    lengths = torch.tensor([L], dtype=torch.int64, device=self.device)
+                except BaseException:
+                    self._abort_admission(slot, req)
+                    raise
             try:
-                # context + room for the first decode write
-                self.pool.append_tokens(req.rid, L + 1)
-            except OutOfPages:
-                self.pool.release(req.rid)
+                with span("engine.admit.model"):
+                    logits, pcache = self._prefill(self.params, tokens, lengths)
+                    page_ids = (
+                        self.pool.request(req.rid).page_ids
+                        if self.pool is not None
+                        else None
+                    )
+                    self.cache = self.model.scatter_prefill(
+                        self.cache, pcache, slot, L, page_ids
+                    )
+                self.slots[slot] = req
+                self.slot_pos[slot] = L
+                if req.submitted_s == 0.0:
+                    # a caller that stamped none: TTFT from the start of
+                    # admission, prefill included (the reference stamps it
+                    # after the prefill)
+                    req.submitted_s = t_admit
+                with span("engine.admit.sync"):
+                    row = logits.float().cpu().numpy()[0, 0]
+                with span("engine.admit.sample"):
+                    req.out_tokens.append(self._sample(row, rng))
+                    if req.first_token_s == 0.0:
+                        req.first_token_s = time.monotonic()
+            except BaseException:
+                # prefill/scatter/sampling failed after the pages were
+                # reserved: undo the admission, then re-raise
+                self._abort_admission(slot, req)
                 raise
-        try:
-            pad = -(-L // self.pad_to) * self.pad_to
-            toks = np.zeros((1, pad), np.int32)
-            toks[0, :L] = ctx
-            logits, pcache = self._prefill(
-                self.params,
-                torch.as_tensor(toks, dtype=torch.int64, device=self.device),
-                torch.tensor([L], dtype=torch.int64, device=self.device),
-            )
-            page_ids = (
-                self.pool.request(req.rid).page_ids
-                if self.pool is not None
-                else None
-            )
-            self.cache = self.model.scatter_prefill(
-                self.cache, pcache, slot, L, page_ids
-            )
-            self.slots[slot] = req
-            self.slot_pos[slot] = L
-            if req.submitted_s == 0.0:
-                # stamped at the start of admission, so TTFT includes the
-                # prefill (the reference stamps it after the prefill)
-                req.submitted_s = t_admit
-            first = self._sample(logits.float().cpu().numpy()[0, 0], rng)
-            req.out_tokens.append(first)
-            if req.first_token_s == 0.0:
-                req.first_token_s = time.monotonic()
-        except BaseException:
-            # prefill/scatter/sampling failed after the pages were reserved:
-            # undo the reservation and free the slot, so a failed admission
-            # leaves the engine as it was; then re-raise
-            self.slots[slot] = None
-            self.slot_pos[slot] = -1
-            if self.pool is not None:
-                self.pool.abort(req.rid)
-            raise
-        if req.done:
-            self._finish(slot)
-        return slot
+            if req.done:
+                self._finish(slot)
+            return slot
 
     # -- decode ---------------------------------------------------------------
     @torch.no_grad()
@@ -267,46 +278,58 @@ class Engine:
         requests (including any that completed at admission since the last
         step).  Paged backend: slots that cannot allocate their next token's
         page are preempted first (see :meth:`take_preempted`)."""
-        finished, self._finished = self._finished, []
-        live = [i for i, s in enumerate(self.slots) if s is not None]
-        if not live:
-            return finished
-        if self.pool is not None:
-            for i in list(live):
-                req = self.slots[i]
-                need = int(self.slot_pos[i]) + 1 - self.pool.request(req.rid).length
-                if need > 0:
-                    try:
-                        self.pool.append_tokens(req.rid, need)
-                    except OutOfPages:
-                        self._preempt(i)
-                        live.remove(i)
+        with span("engine.step"):
+            finished, self._finished = self._finished, []
+            live = [i for i, s in enumerate(self.slots) if s is not None]
             if not live:
                 return finished
-            self._refresh_page_tables()
-        toks = np.zeros((self.batch, 1), np.int64)
-        pos = np.full(self.batch, -1, np.int64)
-        for i in live:
-            toks[i, 0] = self.slots[i].out_tokens[-1]
-            pos[i] = self.slot_pos[i]
-        logits, self.cache = self._decode(
-            self.params, self.cache,
-            torch.as_tensor(toks, device=self.device),
-            torch.as_tensor(pos, device=self.device),
-        )
-        lg = logits.float().cpu().numpy()
-        for i in live:
-            req = self.slots[i]
-            self.slot_pos[i] += 1
-            req.out_tokens.append(self._sample(lg[i, 0], rng))
-            if req.done or self.slot_pos[i] >= self.max_len:
-                self._finish(i)
-        self.steps += 1
-        finished.extend(self._finished)
-        self._finished = []
-        return finished
+            with span("engine.step.prepare"):
+                if self.pool is not None:
+                    for i in list(live):
+                        req = self.slots[i]
+                        need = int(self.slot_pos[i]) + 1 - self.pool.request(req.rid).length
+                        if need > 0:
+                            try:
+                                self.pool.append_tokens(req.rid, need)
+                            except OutOfPages:
+                                self._preempt(i)
+                                live.remove(i)
+                    if not live:
+                        return finished
+                    self._refresh_page_tables()
+                toks = np.zeros((self.batch, 1), np.int64)
+                pos = np.full(self.batch, -1, np.int64)
+                for i in live:
+                    toks[i, 0] = self.slots[i].out_tokens[-1]
+                    pos[i] = self.slot_pos[i]
+                tokens = torch.as_tensor(toks, device=self.device)
+                positions = torch.as_tensor(pos, device=self.device)
+            with span("engine.step.model"):
+                logits, self.cache = self._decode(self.params, self.cache, tokens, positions)
+            with span("engine.step.sync"):
+                lg = logits.float().cpu().numpy()
+            with span("engine.step.sample"):
+                for i in live:
+                    req = self.slots[i]
+                    self.slot_pos[i] += 1
+                    req.out_tokens.append(self._sample(lg[i, 0], rng))
+                    if req.done or self.slot_pos[i] >= self.max_len:
+                        self._finish(i)
+            self.steps += 1
+            finished.extend(self._finished)
+            self._finished = []
+            return finished
 
     # -- internals ------------------------------------------------------------
+    def _abort_admission(self, slot: int, req: Request) -> None:
+        """Undo an admission that failed after its pages were reserved:
+        the slot freed and the pages returned, so a failed admission leaves
+        the engine as it was."""
+        self.slots[slot] = None
+        self.slot_pos[slot] = -1
+        if self.pool is not None:
+            self.pool.abort(req.rid)
+
     def _sample(
         self, logits_row: np.ndarray, rng: Optional[np.random.Generator]
     ) -> int:
@@ -404,11 +427,18 @@ def run_closed_loop(
     (``OutOfPages``) leave the request pending until capacity frees up.
     ``measured`` is duck-typed: any object with ``observe(service, size,
     batch, throughput)`` (the reference's ``MeasuredProfile``) receives the
-    measured throughput when ``service`` and ``size`` are given too."""
+    measured throughput when ``service`` and ``size`` are given too.
+
+    Every request the caller has not stamped is submitted at the loop's
+    start, so its TTFT includes its wait for a slot as well as its
+    prefill."""
     rng = np.random.default_rng(seed)
     pending = list(requests)
     stats = ServeStats()
     t0 = time.monotonic()
+    for req in requests:
+        if req.submitted_s == 0.0:
+            req.submitted_s = t0
     while stats.served < len(requests):
         admitted = False
         # first-fit admission: a request the pool cannot hold right now must

@@ -283,6 +283,19 @@ def test_ttft_includes_the_prefill():
     assert stats.ttft_s[0] >= 0.05
 
 
+def test_ttft_includes_the_wait_for_a_slot():
+    """``run_closed_loop`` submits every request at its start: on one slot
+    the second request's TTFT holds the first one's whole service."""
+    m, params = port_model()
+    eng = Engine(m, params, batch=1, max_len=MAX_LEN)
+    reqs = [Request(rid=i, prompt=np.arange(1, 5, dtype=np.int32), max_new_tokens=3)
+            for i in range(2)]
+    stats = run_closed_loop(eng, reqs)
+    first, second = reqs
+    assert first.submitted_s == second.submitted_s
+    assert stats.ttft_s[1] >= first.finished_s - first.submitted_s > 0.0
+
+
 def test_seeded_sampling_reproducible():
     m, params = port_model()
     prompts = make_prompts(m.cfg, (4, 4, 4), seed=3)
