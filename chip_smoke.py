@@ -1150,6 +1150,7 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
     warm = Engine(model, params, batch=2, max_len=256, kv_backend=backend)
     run_closed_loop(warm, [Request(rid=0, prompt=np.arange(1, 40, dtype=np.int32),
                                    max_new_tokens=3)])
+    warm.close()
     del warm
 
     engine = Engine(model, params, batch=8, max_len=2048, kv_backend=backend, page_size=16)
@@ -2039,6 +2040,7 @@ def main() -> None:
     busy = {"admit": profile_prefill(
         torch, engine, qwen, rng, Request,
         {"flash_attention": FLASH_FWD_NAMES, "matmul": MATMUL_NAMES})}
+    engine.close()
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -2071,12 +2073,13 @@ def main() -> None:
           allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
     model, params = init_main(torch, Model, flatten, granite, args.seed)
     L = granite.num_layers
-    _, c, _ = serve_main(
+    engine, c, _ = serve_main(
         *serve, model, params, args.seed, "auto", "paged",
         lambda admits, steps: {"decode_attention": 0, "flash_attention": admits * L,
                                "paged_decode_attention": steps * L, "ssm_scan": 0})
     counts.append(c)
-    del _
+    engine.close()
+    del engine, _
     engine, c, rng = serve_main(
         *serve, model, params, args.seed, "flat", "flat",
         lambda admits, steps: {"decode_attention": steps * L, "flash_attention": admits * L,
@@ -2095,12 +2098,13 @@ def main() -> None:
     for cfg in (phi4, intern, music):
         model, params = init_main(torch, Model, flatten, cfg, args.seed)
         L = cfg.num_layers
-        _, c, _ = serve_main(
+        engine, c, _ = serve_main(
             *serve, model, params, args.seed, "auto", "paged",
             lambda admits, steps, L=L: {"decode_attention": 0, "flash_attention": admits * L,
                                         "paged_decode_attention": steps * L, "ssm_scan": 0})
         counts.append(c)
-        del model, params, _
+        engine.close()
+        del engine, model, params, _
         torch.cuda.empty_cache()
 
     # deepseek-v2-236b at full width, depth cut to DSV2_LAYERS: MLA on the
@@ -2241,7 +2245,10 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
     of the untraced step time, each traced step's device-busy ms
     (:func:`step_busy`; appended to ``decode_busy`` as (config, backend,
     the list) when given), and the top rows of the profiler's table."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.serving.engine import attn_layer_count
 
     for i in range(engine.batch):
         L = int(rng.integers(128, 1025))
@@ -2254,6 +2261,7 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
         engine.step()
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) / steps * 1e3
+    replays = engine.graph_replays
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
             with record_function(f"{STEP_LABEL}{i}"):
@@ -2263,6 +2271,11 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
     families, n_kernels = kernel_families(events, families)
     busy_ms = sum(families.values()) / steps / 1e3
     per_step, cover, lag = step_busy(prof.events())
+    # what the card ran of the paged kernel: a split and a merge a layer a
+    # step, whether the step was eager or replayed a graph
+    paged = {frag: sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                       and frag in e.key) for frag in ("paged_split", "paged_merge")}
+    want = steps * attn_layer_count(cfg) if engine.kv_backend == "paged" else 0
     phase("profile", config=cfg.name, steps=steps, batch=engine.batch, step_ms=f"{step_ms:.3f}",
           device_busy_ms_per_step=f"{busy_ms:.3f}",
           device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.3f}",
@@ -2270,11 +2283,18 @@ def profile_decode(torch, engine, cfg, rng, Request, families=DECODE_FAMILIES,
           kernels_per_step=n_kernels // steps,
           step_busy_ms=json.dumps([round(x, 4) for x in per_step]),
           step_ranges_cover=f"{cover:.4f}",
-          device_lag_ms=f"{lag[0]:.4f},{lag[1]:.4f}")
+          device_lag_ms=f"{lag[0]:.4f},{lag[1]:.4f}",
+          graph_replays=engine.graph_replays - replays, paged_kernels=json.dumps(paged))
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     if len(per_step) != steps or cover < STEP_COVER:
         fail(f"{cfg.name}: {len(per_step)} traced step ranges hold {cover:.4f} of the "
              f"traced kernel time (need {steps} and {STEP_COVER})")
+    if set(paged.values()) != {want}:
+        fail(f"{cfg.name}: {steps} traced steps ran the paged kernels {paged} times "
+             f"(need {want} each)")
+    if engine.graph_captures and engine.graph_replays - replays != steps:
+        fail(f"{cfg.name}: {engine.graph_replays - replays} of {steps} traced steps "
+             f"replayed the captured graph")
     if decode_busy is not None:
         decode_busy.append((cfg.name, engine.kv_backend, per_step))
     while engine.num_live:

@@ -6,7 +6,8 @@ over the flat or ring latent cache.
 The port of the JAX package's ``models/attention.py``.
 ``gqa_forward`` and ``mla_forward`` are the cacheless training forwards.
 Decode is *ragged*: ``pos`` is a per-request ``(B,)`` vector of positions,
-and negative positions mark idle slots whose cache writes are skipped.
+and negative positions mark idle slots whose cache writes are skipped (the
+paged decode sends them to a sink page instead).
 
 JAX returns new cache arrays; here the caches are updated **in place**
 (only the live rows are written), which is what lets a 36-layer page pool
@@ -220,14 +221,17 @@ def gqa_init_paged_cache(
 ) -> Dict[str, torch.Tensor]:
     """Per-layer page pools.  One logical page id addresses a slab across all
     layers, so one host-side :class:`~repro_torch.serving.paged_cache.PagePool`
-    table drives every layer's kernel.  A sliding window keeps the flat
-    ring cache, as in the reference."""
+    table drives every layer's kernel.  Past the ``num_pages`` a pool hands
+    out, each pool holds one more, the *sink*, which takes the idle slots'
+    writes (:func:`gqa_decode_paged`) and which no page table names.  A
+    sliding window keeps the flat ring cache, as in the reference."""
     if cfg.sliding_window:
         raise NotImplementedError(f"{cfg.name}: the paged cache takes no sliding window")
     KV, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (num_pages + 1, page_size, KV, hd)
     return {
-        "pool_k": torch.zeros((num_pages, page_size, KV, hd), dtype=dtype, device=device),
-        "pool_v": torch.zeros((num_pages, page_size, KV, hd), dtype=dtype, device=device),
+        "pool_k": torch.zeros(shape, dtype=dtype, device=device),
+        "pool_v": torch.zeros(shape, dtype=dtype, device=device),
     }
 
 
@@ -235,31 +239,33 @@ def gqa_decode_paged(
     p: Params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, 1, d)
-    cache: Dict[str, torch.Tensor],  # {"pool_k","pool_v"} (P, ps, KV, hd)
+    cache: Dict[str, torch.Tensor],  # {"pool_k","pool_v"} (P + 1, ps, KV, hd)
     page_tables: torch.Tensor,  # (B, max_pages) int32
     pos,  # (B,) per-slot position of the new token
-    live: torch.Tensor,  # (B,) bool, or live-slot indices
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ragged decode against the paged pool: the new token's k/v is written
-    into its slot's current page, for live slots only (JAX routes idle
-    slots to an out-of-bounds page and lets the scatter drop them; torch
-    indexing would raise, so the idle rows are simply not written), then
+    into its slot's current page, then
     :func:`repro_torch.kernels.ops.paged_decode_attention` runs over the
     pages — the CUDA kernel on a card, its plain version on the CPU.
-    The pools are updated in place."""
+    The pools are updated in place.
+
+    Every slot writes, so the step has fixed shapes and never waits for the
+    device, as a CUDA graph needs: an idle slot (``pos < 0``) writes into
+    the pool's last page, the sink (:func:`gqa_init_paged_cache`), as JAX
+    routes it to an out-of-bounds page whose write the scatter drops.  Its
+    length is 0, for which the kernel returns zeros."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
-    cpos, _ = normalize_pos(pos, B, x.device)
+    cpos, live = normalize_pos(pos, B, x.device)
     q, k_new, v_new = _gqa_qkv(p, cfg, x, cpos[:, None])
     pool_k, pool_v = cache["pool_k"], cache["pool_v"]
     ps = pool_k.shape[1]
-    rows = live_rows(live)
-    page = page_tables[rows, cpos[rows] // ps].long()
-    off = cpos[rows] % ps
-    pool_k[page, off] = k_new[rows, 0]
-    pool_v[page, off] = v_new[rows, 0]
-    lengths = torch.zeros(B, dtype=torch.int32, device=x.device)
-    lengths[rows] = (cpos[rows] + 1).to(torch.int32)
+    page = page_tables.gather(1, (cpos // ps)[:, None])[:, 0].long()
+    page = torch.where(live, page, pool_k.shape[0] - 1)
+    off = cpos % ps
+    pool_k[page, off] = k_new[:, 0]
+    pool_v[page, off] = v_new[:, 0]
+    lengths = torch.where(live, cpos + 1, 0).to(torch.int32)
     o = ops.paged_decode_attention(q, pool_k, pool_v, page_tables, lengths)
     return o.reshape(B, 1, H * hd) @ p["wo"], cache
 

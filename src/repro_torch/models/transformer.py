@@ -499,7 +499,9 @@ class Model:
         """Per-layer page pools (one page id addresses a slab across all
         attention layers), the hybrid's SSM states beside them, plus the
         batch's page tables, which the engine refreshes from its
-        :class:`~repro_torch.serving.paged_cache.PagePool` before each step."""
+        :class:`~repro_torch.serving.paged_cache.PagePool` before each step.
+        Each pool holds one page past ``num_pages``, the sink for the idle
+        slots' writes."""
         cfg = self.cfg
         if not self.supports_paged_kv:
             raise ValueError(
@@ -519,7 +521,9 @@ class Model:
         self, params: Params, cache: Params, token: torch.Tensor, pos
     ) -> Tuple[torch.Tensor, Params]:
         """Like :meth:`decode_step` but with attention KV in page pools
-        (``cache`` from :meth:`init_paged_cache`)."""
+        (``cache`` from :meth:`init_paged_cache`).  Of its layers only the
+        hybrid's SSM ones look up the live slots, which waits for the
+        device."""
         return self._decode(params, cache, token, pos, paged=True)
 
     def _decode(self, params, cache, token, pos, paged: bool):
@@ -529,7 +533,10 @@ class Model:
         pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device).expand(B)
         # live-slot indices, found once per step: finding them waits for the
         # device, which every layer doing it would turn into one wait a layer
-        rows = attn.live_rows(pos >= 0)
+        # (the paged attention needs none: idle slots write its sink page)
+        rows = None
+        if not paged or cfg.arch_type == "hybrid":
+            rows = attn.live_rows(pos >= 0)
         # the full flat cache's prefix mask is the same for every layer:
         # built once per step (a ring cache's comes from each layer's slot_pos)
         valid = None
@@ -542,7 +549,7 @@ class Model:
 
         def attend(p, h, lc):
             if paged:
-                return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos, rows)[0]
+                return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos)[0]
             return decode(p, cfg, h, lc, pos, rows, valid)[0]
 
         with span("model.embed"):

@@ -33,12 +33,24 @@ The engine runs on the device its params live on.  Sampling happens on the
 host and is identical to the reference: ``temperature == 0`` is argmax,
 otherwise temperature/top-k sampling from the ``rng`` passed in.
 
+On a CUDA device the paged decode step of the dense stack runs as one
+CUDA graph (:class:`DecodeGraph`): it is captured at the first step and
+replayed at every later one, so its thousands of launches leave the host
+as one.  The graph reads its inputs by address: the step copies the
+tokens and positions into static device buffers and the page tables into
+the cache's, and admissions, which stay eager, write the same pools in
+place.  Idle slots write into the pools' sink page.  :meth:`Engine.close`
+frees the graph.  The flat backend, and the MoE and hybrid paged steps,
+run eagerly.
+
 Each call names its phases for a torch profiler
 (:func:`repro_torch.kernels.ops.span`; no-ops without one):
 ``engine.admit`` / ``engine.step`` around the call, and inside it
 ``.prepare`` (pages, page tables, the tokens' copy to the device),
 ``.model`` (the model call), ``.sync`` (the logits' copy back, which
-waits for the device) and ``.sample``.
+waits for the device) and ``.sample``; ``engine.step.replay``, inside
+``.model``, marks a step that replayed the graph.  The model's own
+``model.*`` spans are recorded at capture, so replayed steps carry none.
 """
 
 from __future__ import annotations
@@ -50,9 +62,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import span
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import DENSE_TYPES, Model
 from repro_torch.obs.metrics import percentile_summary
 from repro_torch.serving.paged_cache import OutOfPages, PagePool, page_bytes
 
@@ -101,6 +114,64 @@ def page_hbm_bytes(cfg: ModelConfig, page_size: int, dtype_bytes: int = 2) -> in
     )
 
 
+class DecodeGraph:
+    """A decode step captured as one CUDA graph at its first call and
+    replayed at every later one.  The graph reads its arguments by address,
+    so each call passes the same tensors (the engine's own), and returns
+    the graph's logits buffer, which the next replay overwrites.  Each
+    replay adds the captured step's kernel launches to
+    :data:`repro_torch.kernels.ops.LAUNCHES`, so the counts a step are the
+    eager step's."""
+
+    def __init__(self, step):
+        self.step = step  # (params, cache, tokens, positions) -> (logits, cache)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, params, cache, tokens, positions):
+        if self.graph is None:
+            self._capture(params, cache, tokens, positions)
+        with span("engine.step.replay"):
+            self.graph.replay()
+        for name, n in self.launches.items():
+            ops.LAUNCHES[name] += n
+        self.replays += 1
+        return self.logits, cache
+
+    def _capture(self, params, cache, tokens, positions) -> None:
+        """Warm the step up on a side stream (cuBLAS handles, workspaces),
+        then capture it.  The warm-up writes the live slots' k/v rows that
+        the first replay writes again, bit for bit.  Neither run counts as
+        launches: the capture's are what each replay adds."""
+        before = ops.launches()
+        stream = torch.cuda.current_stream(tokens.device)
+        side = torch.cuda.Stream(tokens.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.step(params, cache, tokens, positions)
+        stream.wait_stream(side)
+        warm = ops.launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits, _ = self.step(params, cache, tokens, positions)
+        after = ops.launches()
+        self.launches = {k: after[k] - warm[k] for k in after if after[k] != warm[k]}
+        ops.LAUNCHES.update(before)
+        self.graph = graph
+        self.captures += 1
+
+    def reset(self) -> None:
+        """Free the graph and its memory pool once the device has run every
+        replay; the next call captures anew."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.logits.device)
+            self.graph.reset()
+            self.graph = self.logits = None
+
+
 class Engine:
     def __init__(
         self,
@@ -131,6 +202,9 @@ class Engine:
         self.slot_pos = np.full(batch, -1, np.int32)
         self._finished: List[Request] = []
         self._preempted: List[Request] = []
+        # the decode step's inputs, on the device at fixed addresses
+        self._tokens = torch.zeros((batch, 1), dtype=torch.int64, device=self.device)
+        self._positions = torch.full((batch,), -1, dtype=torch.int64, device=self.device)
 
         cfg = self.cfg
         if cfg.sliding_window and cfg.sliding_window < max_len:
@@ -176,6 +250,11 @@ class Engine:
             self.pool = None
             self.cache = model.init_cache(batch, max_len, device=self.device)
             self._decode = model.decode_step
+        # on a card the dense stack's paged step runs as a CUDA graph (the
+        # hybrid's SSM layers look up the live rows; the MoE step stays eager)
+        self._graph: Optional[DecodeGraph] = None
+        if backend == "paged" and self.device.type == "cuda" and cfg.arch_type in DENSE_TYPES:
+            self._graph = self._decode = DecodeGraph(self._decode)
         self._prefill = lambda p, toks, lens: model.prefill(p, toks, lengths=lens)
         if cfg.arch_type in ("ssm", "hybrid"):
             self.pad_to = cfg.ssm_chunk
@@ -185,6 +264,16 @@ class Engine:
             self.pad_to = PREFILL_BUCKET
 
     # -- introspection --------------------------------------------------------
+    @property
+    def graph_captures(self) -> int:
+        """How often the decode step was captured as a CUDA graph."""
+        return self._graph.captures if self._graph else 0
+
+    @property
+    def graph_replays(self) -> int:
+        """How many decode steps replayed the captured graph."""
+        return self._graph.replays if self._graph else 0
+
     def has_free_slot(self) -> bool:
         return any(s is None for s in self.slots)
 
@@ -302,10 +391,12 @@ class Engine:
                 for i in live:
                     toks[i, 0] = self.slots[i].out_tokens[-1]
                     pos[i] = self.slot_pos[i]
-                tokens = torch.as_tensor(toks, device=self.device)
-                positions = torch.as_tensor(pos, device=self.device)
+                self._tokens.copy_(torch.from_numpy(toks))
+                self._positions.copy_(torch.from_numpy(pos))
             with span("engine.step.model"):
-                logits, self.cache = self._decode(self.params, self.cache, tokens, positions)
+                logits, self.cache = self._decode(
+                    self.params, self.cache, self._tokens, self._positions
+                )
             with span("engine.step.sync"):
                 lg = logits.float().cpu().numpy()
             with span("engine.step.sample"):
@@ -319,6 +410,14 @@ class Engine:
             finished.extend(self._finished)
             self._finished = []
             return finished
+
+    def close(self) -> None:
+        """Free the captured decode graph and its memory pool now, not
+        when the engine is dropped (a later step captures anew).  A graph
+        freed while a torch profiler runs drops device operations from its
+        trace."""
+        if self._graph is not None:
+            self._graph.reset()
 
     # -- internals ------------------------------------------------------------
     def _abort_admission(self, slot: int, req: Request) -> None:

@@ -24,8 +24,10 @@ from repro.serving import run_closed_loop as jax_run_closed_loop  # noqa: E402
 from repro.training.checkpoint import _flatten  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     Engine, OutOfPages, Request, ServeStats, run_closed_loop,
 )
@@ -342,3 +344,181 @@ def test_serve_cli_on_cpu_writes_stats_json(tmp_path, capsys, arch):
     summary = json.loads(out.read_text())
     assert summary["counters"]["serving.completed"] == 3.0
     assert set(summary["latency"]) == set(ServeStats().summary()["latency"])
+
+
+# -- the fixed-shape paged decode step (the one a CUDA graph captures) ----------
+
+FIXED_ARCHS = ("qwen3-8b", "phi4-mini-3.8b", "internvl2-1b", "musicgen-large", "granite-20b")
+
+
+def _pools(cache):
+    return cache["layers"].get("attn", cache["layers"])  # the hybrid's sit under attn/
+
+
+def _paged_step_inputs(m, B, live, page_size=4, max_pages=4, seed=0):
+    """A paged cache over random pool contents, page tables as a pool
+    hands them out (distinct pages to live slots, page 0 to idle ones), and
+    each live slot's position a page apart; returns (cache, positions,
+    num_pages)."""
+    rng = np.random.default_rng(seed)
+    num_pages = B * max_pages
+    cache = m.init_paged_cache(B, num_pages, page_size, max_pages, device="cpu")
+    for leaf in ("pool_k", "pool_v"):
+        pool = _pools(cache)[leaf]
+        pool.copy_(torch.as_tensor(rng.standard_normal(pool.shape), dtype=pool.dtype))
+    perm = rng.permutation(num_pages)
+    pt = np.zeros((B, max_pages), np.int32)
+    pos = np.full(B, -1, np.int64)
+    for b in np.flatnonzero(live):
+        pt[b] = perm[b * max_pages:(b + 1) * max_pages]
+        pos[b] = page_size - 2 + 3 * b % (page_size * (max_pages - 1))
+    cache["page_tables"].copy_(torch.from_numpy(pt))
+    return cache, pos, num_pages
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _decode_paged_by_rows(p, cfg, x, cache, page_tables, pos):
+    """The paged attention's row-indexed form: the live slots looked up
+    (a wait for the device), only their k/v written, idle lengths 0."""
+    B = x.shape[0]
+    cpos, live = tattn.normalize_pos(pos, B, x.device)
+    q, k_new, v_new = tattn._gqa_qkv(p, cfg, x, cpos[:, None])
+    ps = cache["pool_k"].shape[1]
+    rows = tattn.live_rows(live)
+    page = page_tables[rows, cpos[rows] // ps].long()
+    cache["pool_k"][page, cpos[rows] % ps] = k_new[rows, 0]
+    cache["pool_v"][page, cpos[rows] % ps] = v_new[rows, 0]
+    lengths = torch.zeros(B, dtype=torch.int32)
+    lengths[rows] = (cpos[rows] + 1).to(torch.int32)
+    o = ops.paged_decode_attention(q, cache["pool_k"], cache["pool_v"], page_tables, lengths)
+    return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "qwen3-8b", "zamba2-1.2b", GQA_MOE])
+@pytest.mark.parametrize("live", [
+    (False, True, False, True, False),  # idle at both ends and in the middle
+    (True, False, False, True, True),
+    (True, True, True, True, True),
+    (False, False, False, False, True),
+], ids=["ends-and-middle", "middle-run", "all-live", "last-only"])
+def test_fixed_shape_paged_step_matches_the_row_form_and_writes_idle_rows_to_the_sink(
+        arch, live, monkeypatch):
+    """Three ragged steps, crossing page boundaries: the paged step (no
+    live-row lookup in its attention) gives the live slots the same
+    logits, bit for bit, as the row-indexed form, and the same writes into
+    every real page; an idle slot writes the sink page only."""
+    m, params = port_model(arch)
+    live = np.array(live)
+    B = live.size
+    cache, pos, num_pages = _paged_step_inputs(m, B, live)
+    rows_cache, fixed_cache = _clone_tree(cache), _clone_tree(cache)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        tok = torch.as_tensor(rng.integers(1, m.cfg.vocab_size, size=(B, 1)))
+        with monkeypatch.context() as mp:
+            mp.setattr(tattn, "gqa_decode_paged", _decode_paged_by_rows)
+            want, _ = m.decode_step_paged(params, rows_cache, tok, torch.from_numpy(pos))
+        got, _ = m.decode_step_paged(params, fixed_cache, tok, torch.from_numpy(pos))
+        assert torch.equal(got[live], want[live])
+        pos = np.where(live, pos + 1, pos)
+    for leaf in ("pool_k", "pool_v"):
+        before = _pools(cache)[leaf]
+        rows_pool, fixed_pool = _pools(rows_cache)[leaf], _pools(fixed_cache)[leaf]
+        assert fixed_pool.shape[1] == num_pages + 1
+        assert torch.equal(fixed_pool[:, :num_pages], rows_pool[:, :num_pages])
+        assert torch.equal(rows_pool[:, num_pages], before[:, num_pages])
+        # the real pages written are the live slots' own
+        written = (fixed_pool[:, :num_pages] != before[:, :num_pages]).flatten(2).any(-1)
+        pages = set(np.flatnonzero(written.any(0).numpy()))
+        assert pages <= set(cache["page_tables"][live].flatten().tolist())
+        assert len(pages) >= live.sum()
+        sink_written = bool((fixed_pool[:, num_pages] != before[:, num_pages]).any())
+        assert sink_written == (not live.all())
+
+
+@pytest.mark.parametrize("arch", FIXED_ARCHS + ("zamba2-1.2b", GQA_MOE))
+def test_paged_engine_holds_a_sink_page_and_captures_no_graph_on_the_cpu(arch):
+    """Every paged engine's pools hold one sink page past the pool's
+    pages; on the CPU the step runs eagerly (graphs are the card's) and
+    serves."""
+    m, params = port_model(arch)
+    eng = Engine(m, params, batch=2, max_len=MAX_LEN, kv_backend="paged", page_size=4,
+                 num_pages=9)
+    kv = _pools(eng.cache)
+    assert kv["pool_k"].shape[1] == kv["pool_v"].shape[1] == 9 + 1
+    assert eng._graph is None and eng._decode == m.decode_step_paged
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=3)
+            for i, p in enumerate(make_prompts(m.cfg, (5, 3)))]
+    run_closed_loop(eng, reqs)
+    assert all(r.done for r in reqs)
+    assert eng.graph_captures == eng.graph_replays == 0
+    eng.close()  # nothing to free
+
+
+@pytest.mark.parametrize("backend", ["paged", "flat"])
+def test_a_dropped_engine_is_freed_without_the_collector(backend):
+    """An engine holds no reference cycle, so dropping it frees its cache
+    (and on a card its decode graph) there and then."""
+    import gc
+    import weakref
+
+    m, params = port_model("granite-20b")
+    eng = Engine(m, params, batch=2, max_len=MAX_LEN, kv_backend=backend)
+    run_closed_loop(eng, [Request(rid=0, prompt=make_prompts(m.cfg, (5,))[0],
+                                  max_new_tokens=3)])
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("num_pages,budget_pages", [(1, None), (5, None), (13, None),
+                                                    (None, 7), (None, 7.5)])
+def test_page_pool_never_hands_out_the_sink_page(num_pages, budget_pages):
+    """Every page the pool holds, drawn until it is exhausted, lies below
+    the sink, which is the cache's last page, at any ``num_pages`` or HBM
+    budget; so no page table ever names it."""
+    from repro_torch.serving.engine import page_hbm_bytes
+
+    m, params = port_model("granite-20b")
+    budget = None if budget_pages is None else int(budget_pages * page_hbm_bytes(m.cfg, 4))
+    eng = Engine(m, params, batch=4, max_len=MAX_LEN, kv_backend="paged", page_size=4,
+                 num_pages=num_pages, hbm_budget_bytes=budget)
+    sink = eng.cache["layers"]["pool_k"].shape[1] - 1
+    assert sink == eng.pool.num_pages == (num_pages or int(budget_pages))
+    rids = []
+    while eng.pool.free_pages:
+        eng.pool.admit(len(rids))
+        eng.pool.append_tokens(len(rids), 4 * min(eng.pool.free_pages,
+                                                  eng.pool.max_pages_per_req))
+        rids.append(len(rids))
+    with pytest.raises(OutOfPages):
+        eng.pool.admit(len(rids))
+        eng.pool.append_tokens(len(rids), 1)
+    held = [p for r in rids for p in eng.pool.request(r).page_ids]
+    assert sorted(held) == list(range(sink))
+    pt, _ = eng.pool.tables((rids + [None] * 4)[:4])
+    assert pt.max() < sink
+
+
+def test_fixed_shape_paged_engine_matches_the_flat_engine_through_preemption():
+    """Staggered admissions, finishes, slots refilled mid-run, contexts
+    crossing page boundaries, and a pool small enough to preempt: the
+    fixed-shape paged engine's tokens equal the flat engine's."""
+    m, params = port_model("granite-20b")
+    lens, news = (9, 3, 14, 6, 11, 4), (12, 5, 9, 14, 3, 10)
+    outs = {}
+    for backend, kw in (("flat", {}), ("paged", {"page_size": 4, "num_pages": 12})):
+        eng = Engine(m, params, batch=3, max_len=MAX_LEN, kv_backend=backend, **kw)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(make_prompts(m.cfg, lens, seed=4), news))]
+        stats = run_closed_loop(eng, reqs)
+        outs[backend] = ([r.out_tokens for r in reqs], stats.preempted)
+    assert outs["paged"][1] > 0 and outs["flat"][1] == 0
+    assert outs["paged"][0] == outs["flat"][0]

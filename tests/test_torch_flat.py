@@ -434,6 +434,10 @@ def test_granite_decode_matches_jax(dtype, tol, paged):
         pos = np.where(live, pos + 1, pos)
     a, b = leaves(tcache), leaves(jcache)
     for k in a:
+        if k.endswith("pool_k") or k.endswith("pool_v"):
+            # the port's pools end in a sink page, which the JAX package's lack
+            assert a[k].shape[1] == b[k].shape[1] + 1
+            a[k] = a[k][:, :-1]
         if not k.endswith("page_tables"):
             close(a[k], b[k], tol)
 

@@ -826,3 +826,134 @@ finally:
     assert res.returncode == 0, res.stderr[-3000:]
     err, aux_err = map(float, res.stdout.split())
     assert err <= TOL[torch.bfloat16] and aux_err <= 1e-6
+
+
+# -- the serving engine's paged decode step as one CUDA graph --------------------
+
+
+def _serve(model, params, backend, **engine_kw):
+    """Six requests over three slots in the engine's closed loop: staggered
+    admissions and finishes, slots refilled mid-run, contexts crossing page
+    boundaries; on a small page pool, preemptions.  Returns (engine,
+    stats, every request's tokens)."""
+    from repro_torch.serving import Engine, Request, run_closed_loop
+
+    rng = np.random.default_rng(4)
+    lens, news = (9, 3, 14, 6, 11, 4), (12, 5, 9, 14, 3, 10)
+    reqs = [Request(rid=i, prompt=rng.integers(1, model.cfg.vocab_size, L).astype(np.int32),
+                    max_new_tokens=n) for i, (L, n) in enumerate(zip(lens, news))]
+    eng = Engine(model, params, batch=3, max_len=64, kv_backend=backend, **engine_kw)
+    stats = run_closed_loop(eng, reqs)
+    return eng, stats, [r.out_tokens for r in reqs]
+
+
+def _staggered(model, params, backend):
+    """chip_smoke.py's staggered admissions: one request, two steps, a
+    second, a step, a third, then steps until all finish."""
+    from repro_torch.serving import Engine, Request
+
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(1, model.cfg.vocab_size, L).astype(np.int32),
+                    max_new_tokens=6) for i, L in enumerate((3, 5, 9))]
+    eng = Engine(model, params, batch=3, max_len=64, kv_backend=backend)
+    eng.admit(reqs[0])
+    eng.step()
+    eng.step()
+    eng.admit(reqs[1])
+    eng.step()
+    eng.admit(reqs[2])
+    while eng.num_live:
+        eng.step()
+    return eng, [r.out_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "qwen3-8b"])
+def test_paged_engine_replays_one_captured_step_with_the_flat_engines_tokens(cuda, arch):
+    """The dense stack's paged engine captures its decode step once and
+    replays it at every step; its tokens equal the eager flat engine's
+    through staggered admissions, finishes, refilled slots, page
+    boundaries and preemptions; each replay counts the eager step's
+    launches; and a replay's logits are the eager step's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_to
+
+    model = Model(get_smoke_config(arch, dtype="float32"))
+    params = tree_to(model.init(0, device="cpu"), cuda)
+    L = model.cfg.num_layers
+    _, flat_stats, want = _serve(model, params, "flat")
+    ops.reset_launches()
+    eng, stats, got = _serve(model, params, "paged", page_size=4, num_pages=12)
+    counts = ops.launches()
+    assert stats.preempted > 0 and flat_stats.preempted == 0
+    assert got == want
+    assert eng.graph_captures == 1 and eng.graph_replays == eng.steps > 0
+    admissions = len(got) + stats.preempted
+    assert counts == dict(counts, paged_decode_attention=eng.steps * L,
+                          flash_attention=admissions * L)
+    assert counts["decode_attention"] == counts["ssm_scan"] == 0
+
+    flat_eng, want = _staggered(model, params, "flat")
+    eng, got = _staggered(model, params, "paged")
+    assert got == want and eng.graph_captures == 1 and eng.graph_replays == eng.steps
+    assert flat_eng.graph_captures == 0
+
+    # one more step: the replay's launches and logits are the eager step's
+    from repro_torch.serving import Request
+
+    eng.admit(Request(rid=9, prompt=np.arange(1, 20, dtype=np.int32), max_new_tokens=4))
+    before = ops.launches()
+    eng.step()
+    replayed = eng._graph.logits.clone()
+    mid = ops.launches()
+    eager, _ = eng._graph.step(eng.params, eng.cache, eng._tokens, eng._positions)
+    after = ops.launches()
+    per_replay = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+    per_eager = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+    assert per_replay == per_eager == {"paged_decode_attention": L}
+    torch.testing.assert_close(replayed, eager, atol=1e-5, rtol=1e-5)
+
+    # close() frees the graph; the next step captures anew
+    eng.close()
+    assert eng._graph.graph is None and eng._graph.logits is None
+    eng.step()
+    assert eng.graph_captures == 2
+
+    # the engine and its graph hold no reference cycle: dropping the engine
+    # frees the graph there and then, not whenever the collector runs
+    import gc
+    import weakref
+
+    graph = weakref.ref(eng._graph)
+    gc.disable()
+    try:
+        del eng
+        assert graph() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("arch,backend", [("zamba2-1.2b", "paged"), ("gqa-moe", "paged"),
+                                          ("granite-20b", "flat")])
+def test_hybrid_moe_and_flat_engines_take_the_eager_step(cuda, arch, backend):
+    """Only the dense stack's paged step is captured: the hybrid's SSM
+    layers look the live rows up, the MoE step is left eager, and so is the
+    flat backend's; each serves as before."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_to
+
+    if arch == "gqa-moe":
+        cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b", dtype="float32"),
+                                  attention_kind="gqa")
+    else:
+        cfg = get_smoke_config(arch, dtype="float32")
+    model = Model(cfg)
+    params = tree_to(model.init(0, device="cpu"), cuda)
+    eng, _, tokens = _serve(model, params, backend)
+    assert eng.kv_backend == backend
+    assert eng._graph is None
+    assert eng.graph_captures == eng.graph_replays == 0
+    assert all(len(t) == n for t, n in zip(tokens, (12, 5, 9, 14, 3, 10)))

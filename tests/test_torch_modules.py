@@ -111,29 +111,32 @@ def test_gqa_decode_matches_jax_and_skips_idle_slots():
 
 
 def test_gqa_decode_paged_matches_jax_and_leaves_pools_untouched_for_idle_slots():
+    """The port's pools hold one page more than the JAX package's, the sink
+    (the last), which takes the idle slots' writes; every real page matches
+    and the idle slots' dummy page 0 is untouched."""
     rng = np.random.default_rng(5)
     jp, tp = attn_params(rng)
     B, KV, hd, P, ps, max_pages = 4, CFG.num_kv_heads, CFG.head_dim, 12, 4, 3
-    pk, pv = normal(rng, (P, ps, KV, hd)), normal(rng, (P, ps, KV, hd))
+    pk, pv = normal(rng, (P + 1, ps, KV, hd)), normal(rng, (P + 1, ps, KV, hd))
     pt = np.array([[3, 7, 1], [0, 0, 0], [5, 2, 9], [0, 0, 0]], np.int32)
     pos = np.array([6, -1, 9, -1], np.int32)  # slots 1 and 3 idle
     live = pos >= 0
     x = normal(rng, (B, 1, CFG.d_model))
     jout, jc = jattn.gqa_decode_paged(
-        jp, JCFG, jnp.asarray(x), {"pool_k": jnp.asarray(pk), "pool_v": jnp.asarray(pv)},
+        jp, JCFG, jnp.asarray(x), {"pool_k": jnp.asarray(pk[:P]), "pool_v": jnp.asarray(pv[:P])},
         jnp.asarray(pt), jnp.asarray(pos), jnp.asarray(live))
     tcache = {"pool_k": torch.from_numpy(pk.copy()), "pool_v": torch.from_numpy(pv.copy())}
     tout, tc = tattn.gqa_decode_paged(
-        tp, CFG, torch.from_numpy(x), tcache, torch.from_numpy(pt), torch.from_numpy(pos),
-        torch.from_numpy(live))
+        tp, CFG, torch.from_numpy(x), tcache, torch.from_numpy(pt), torch.from_numpy(pos))
     # idle rows: JAX's reference path averages the dummy page, the kernels
     # give zeros; their logits are discarded either way
     close(tout[live], np.asarray(jout)[live])
-    close(tc["pool_k"], jc["pool_k"])
-    close(tc["pool_v"], jc["pool_v"])
+    close(tc["pool_k"][:P], jc["pool_k"])
+    close(tc["pool_v"][:P], jc["pool_v"])
     changed = np.any(tc["pool_k"].numpy() != pk, axis=(1, 2, 3))
-    # only pt[0][6 // 4] and pt[2][9 // 4]; the idle slots' dummy page 0 is untouched
-    assert sorted(np.flatnonzero(changed)) == [7, 9]
+    # only pt[0][6 // 4], pt[2][9 // 4] and the sink; the idle slots' dummy
+    # page 0 is untouched
+    assert sorted(np.flatnonzero(changed)) == [7, 9, P]
     assert tc["pool_k"] is tcache["pool_k"]  # updated in place
 
 
