@@ -1,6 +1,7 @@
 """Import isolation: nothing under servebench loads JAX or the JAX package
 (``repro``, compared by whole top-level name: ``repro_torch`` is the
-program), the yardstick (reference/, counts/) loads nothing of the program,
+program), the yardstick (reference/, counts/, and the weights the reference
+makes: weights.py, layouts/) loads nothing of the program,
 and nothing reads chip_smoke or the JAX package's benchmarks."""
 
 import ast
@@ -39,7 +40,8 @@ def test_no_file_imports_jax_or_the_jax_package(path):
         assert "chip_smoke" not in path.read_text() and "benchmarks/" not in path.read_text()
 
 
-YARDSTICK = sorted((SB / "reference").rglob("*.py")) + sorted((SB / "counts").rglob("*.py"))
+YARDSTICK = (sorted((SB / "reference").rglob("*.py")) + sorted((SB / "counts").rglob("*.py"))
+             + sorted((SB / "layouts").rglob("*.py")) + [SB / "weights.py"])
 
 
 @pytest.mark.parametrize("path", YARDSTICK, ids=[str(p.relative_to(SB)) for p in YARDSTICK])

@@ -1,29 +1,52 @@
 """Seeded weights in the port's parameter layout, made on the device.
 
-Every (leaf, layer) slice is drawn from its own ``torch.Generator``, seeded
-from ``(seed, key, layer)``, so the harness can fill whole stacked tensors
-and the reference can make any one layer again, bit for bit, without the
-rest.  Only torch is imported here: the reference uses this module too.
+A family's tree is its layout, ``layouts/<arch_type>.py``, found by the
+config's ``arch_type``: an ordered list of :class:`Group`.  Each group has
+a key prefix (``""`` for the top-level ``embed``, ``head``,
+``final_norm``; ``dense_0``, ``shared_attn``, ``layers``, ...), a row
+count (None: unstacked; n: stacked along a leading axis of n, the
+layout's own count) and its leaves in ``(key, shape, kind, std)`` form.
 
-Leaves follow the port's key tree (``embed``, ``head``, ``final_norm``,
-``layers/...`` stacked over a leading layer axis).  Scales follow its
-initializer (normal leaves at ``1/sqrt(fan_in)``, the embedding at 0.02);
-the norms, the SSM's ``A_log``, ``dt_bias``, ``D`` and the conv bias are
-drawn around their initial values, as a trained model's are, so that a
-path that ignored one of them would show in the logits.
+Every slice is drawn from its own ``torch.Generator``, seeded from
+``(seed, key, layer)``, so the harness can fill whole stacked tensors and
+the reference can make any one slice again, bit for bit, without the
+rest.  The seed rule, by group:
+
+- top level (prefix ``""``): ``(seed, key, -1)``;
+- ``layers`` row i: ``(seed, key relative to layers/, i)``;
+- any other unstacked group: ``(seed, full path, -1)``;
+- any other stack, row i: ``(seed, full path, i)``.
+
+Full paths hold a ``/`` and top-level keys do not; :func:`layout` also
+refuses a layout that gives two leaves one seed key, so no seed repeats,
+and :func:`leaf` takes any slice by its ``(key, layer)``.  Only torch is
+imported here: the reference uses this module too.
+
+Scales follow the port's initializer (normal leaves at ``1/sqrt(fan_in)``,
+the embedding at 0.02); the norms, the SSM's ``A_log``, ``dt_bias``,
+``D`` and the conv bias are drawn around their initial values, as a
+trained model's are, so that a path that ignored one of them would show
+in the logits.
 """
 
 from __future__ import annotations
 
 import hashlib
+import importlib
 import math
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 # (key, per-layer shape, kind, std); kind in normal | norm | a_log | dt_bias
 # | d_skip | bias
 Leaf = Tuple[str, Tuple[int, ...], str, float]
+
+
+class Group(NamedTuple):
+    prefix: str  # "" for the top-level leaves
+    rows: Optional[int]  # None: unstacked; n: stacked along a leading axis
+    leaves: List[Leaf]  # keys relative to the prefix
 
 
 def padded_vocab(cfg: Dict) -> int:
@@ -50,33 +73,31 @@ def top_leaves(cfg: Dict) -> List[Leaf]:
             ("final_norm", (d,), "norm", 0.1)]
 
 
-def layer_leaves(cfg: Dict) -> List[Leaf]:
-    """The leaves of one stacked layer, keys relative to ``layers/``."""
-    d = cfg["d_model"]
-    if cfg["arch_type"] == "dense":
-        H, KV = cfg["num_heads"], cfg["num_kv_heads"]
-        hd = cfg.get("head_dim") or d // H
-        ff = cfg["d_ff"]
-        out = [("ln1", (d,), "norm", 0.1),
-               _normal("attn/wq", (d, H * hd)), _normal("attn/wk", (d, KV * hd)),
-               _normal("attn/wv", (d, KV * hd)), _normal("attn/wo", (H * hd, d))]
-        if cfg.get("qk_norm"):
-            out += [("attn/q_norm", (hd,), "norm", 0.1), ("attn/k_norm", (hd,), "norm", 0.1)]
-        out.append(("ln2", (d,), "norm", 0.1))
-        if cfg.get("mlp_gated", True):
-            out.append(_normal("mlp/w_gate", (d, ff)))
-        return out + [_normal("mlp/w_up", (d, ff)), _normal("mlp/w_down", (ff, d))]
-    if cfg["arch_type"] == "ssm":
-        di, n, H = d_inner(cfg), cfg["ssm_state"], ssm_heads(cfg)
-        conv_ch = di + 2 * n
-        W = cfg.get("conv_width", 4)
-        return [("ln", (d,), "norm", 0.1),
-                _normal("w_z", (d, di)), _normal("w_xbc", (d, conv_ch)), _normal("w_dt", (d, H)),
-                _normal("conv_w", (W, conv_ch)), ("conv_b", (conv_ch,), "bias", 0.1),
-                ("A_log", (H,), "a_log", 0.0), ("dt_bias", (H,), "dt_bias", 0.0),
-                ("D", (H,), "d_skip", 0.1), ("ssm_norm", (di,), "norm", 0.1),
-                _normal("w_out", (di, d))]
-    raise ValueError(f"no weight layout for arch_type {cfg['arch_type']!r}")
+def _seed_key(prefix: str, key: str) -> str:
+    return key if prefix in ("", "layers") else f"{prefix}/{key}"
+
+
+def layout(cfg: Dict) -> List[Group]:
+    """The groups of ``cfg``'s family (``layouts/<arch_type>.py``), each
+    leaf's seed key checked to be its own."""
+    arch = cfg["arch_type"]
+    name = f"servebench.layouts.{arch}"
+    try:
+        mod = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ValueError(f"no weight layout for arch_type {arch!r}: "
+                         f"servebench/layouts/{arch}.py is missing") from None
+    groups = mod.groups(cfg)
+    seen = set()
+    for g in groups:
+        for key, *_ in g.leaves:
+            k = _seed_key(g.prefix, key)
+            if k in seen:
+                raise ValueError(f"layout {arch!r} gives two leaves the seed key {k!r}")
+            seen.add(k)
+    return groups
 
 
 def _seed(seed: int, key: str, layer: int) -> int:
@@ -105,11 +126,14 @@ def fill(out: torch.Tensor, kind: str, std: float, seed: int, key: str, layer: i
 
 def leaf(cfg: Dict, seed: int, key: str, layer: int = -1, dtype=torch.bfloat16,
          device="cpu") -> torch.Tensor:
-    """One leaf (``layer`` -1: a top-level one) or one layer's slice of a
-    stacked leaf, drawn in bfloat16 and returned as ``dtype``."""
-    table = {k: (s, kind, std) for k, s, kind, std in
-             (top_leaves(cfg) if layer < 0 else layer_leaves(cfg))}
-    shape, kind, std = table[key]
+    """One slice by its seed's ``(key, layer)`` (module docstring): a
+    top-level leaf, row ``layer`` of a ``layers/`` leaf (key relative to
+    ``layers/``), an unstacked group's leaf by its full path, or row
+    ``layer`` of another stack's; drawn in bfloat16, returned as ``dtype``."""
+    table = {_seed_key(g.prefix, lf[0]): (g, lf) for g in layout(cfg) for lf in g.leaves}
+    g, (_, shape, kind, std) = table[key]
+    if not (layer == -1 if g.rows is None else 0 <= layer < g.rows):
+        raise IndexError(f"{key!r} has no row {layer} (group {g.prefix!r}, rows {g.rows})")
     t = fill(torch.empty(shape, dtype=torch.bfloat16, device=device), kind, std, seed, key, layer)
     return t.to(dtype)
 
@@ -126,29 +150,38 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:
 
 
 def make_params(cfg: Dict, seed: int, device) -> Dict:
-    """The whole parameter tree in bfloat16 on ``device``: each stacked
-    leaf is allocated once and filled layer by layer."""
+    """The whole parameter tree in bfloat16 on ``device``, group by group:
+    each stacked leaf is allocated once and filled row by row."""
     flat: Dict[str, torch.Tensor] = {}
-    for key, shape, kind, std in top_leaves(cfg):
-        flat[key] = fill(torch.empty(shape, dtype=torch.bfloat16, device=device),
-                         kind, std, seed, key, -1)
-    n = cfg["num_layers"]
-    for key, shape, kind, std in layer_leaves(cfg):
-        arr = torch.empty((n,) + shape, dtype=torch.bfloat16, device=device)
-        for i in range(n):
-            fill(arr[i], kind, std, seed, key, i)
-        flat[f"layers/{key}"] = arr
+    for g in layout(cfg):
+        for key, shape, kind, std in g.leaves:
+            sk = _seed_key(g.prefix, key)
+            path = f"{g.prefix}/{key}" if g.prefix else key
+            if g.rows is None:
+                flat[path] = fill(torch.empty(shape, dtype=torch.bfloat16, device=device),
+                                  kind, std, seed, sk, -1)
+                continue
+            arr = torch.empty((g.rows,) + shape, dtype=torch.bfloat16, device=device)
+            for i in range(g.rows):
+                fill(arr[i], kind, std, seed, sk, i)
+            flat[path] = arr
     return _unflatten(flat)
 
 
 def nbytes(cfg: Dict) -> int:
     """Bytes of the bfloat16 parameter tree."""
-    n = cfg["num_layers"]
-    tot = sum(math.prod(s) for _, s, _, _ in top_leaves(cfg))
-    tot += n * sum(math.prod(s) for _, s, _, _ in layer_leaves(cfg))
-    return 2 * tot
+    return 2 * sum((1 if g.rows is None else g.rows) * sum(math.prod(s) for _, s, _, _ in g.leaves)
+                   for g in layout(cfg))
+
+
+def iter_group(cfg: Dict, seed: int, prefix: str, row: int, dtype,
+               device) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Row ``row`` (-1 for an unstacked group) of group ``prefix``: each
+    leaf's key relative to the prefix, and its slice as ``dtype``."""
+    (g,) = [g for g in layout(cfg) if g.prefix == prefix]
+    for key, *_ in g.leaves:
+        yield key, leaf(cfg, seed, _seed_key(prefix, key), row, dtype, device)
 
 
 def iter_layer(cfg: Dict, seed: int, layer: int, dtype, device) -> Iterator[Tuple[str, torch.Tensor]]:
-    for key, *_ in layer_leaves(cfg):
-        yield key, leaf(cfg, seed, key, layer, dtype, device)
+    return iter_group(cfg, seed, "layers", layer, dtype, device)
