@@ -1,9 +1,13 @@
 """Weight layouts are found by ``arch_type``: the dense and SSM trees are
 bit for bit what they were before layouts were files, a new family joins
-as one file in ``layouts/`` with no edit, and every group's slices are
-made again alone, from the seed rule of ``weights.py``."""
+as one file in ``layouts/`` with no edit, every shipped layout builds the
+port's tree for each of the port's smoke configurations of its family, and
+every group's slices are made again alone, from the seed rule of
+``weights.py``."""
 
+import dataclasses
 import hashlib
+import inspect
 import json
 import shutil
 import subprocess
@@ -14,7 +18,9 @@ import pytest
 import torch
 from conftest import ROOT, SB, tiny_cfg
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Model
 from servebench import weights
 
 
@@ -96,7 +102,8 @@ def test_a_layout_that_repeats_a_seed_key_is_refused(monkeypatch):
 
 MOE = '''
 """The MoE family as the port builds it: MLA attention, ``first_dense_layers``
-unrolled dense blocks, then a stack of MoE blocks."""
+unrolled dense blocks, a stack of MoE blocks, and DeepSeek-V3's
+multi-token-prediction leaves where ``mtp`` is set."""
 
 from servebench.weights import Group, _normal, top_leaves
 
@@ -122,10 +129,12 @@ def groups(cfg):
     moe = [_normal("moe/router", (d, E), 0.02), _normal("moe/we_gate", (E, d, ff)),
            _normal("moe/we_up", (E, d, ff)), _normal("moe/we_down", (E, ff, d))]
     moe += _mlp("moe/shared", d, ff * cfg["num_shared_experts"])
+    mtp = [Group("mtp", None, [_normal("proj", (2 * d, d)), ("norm", (d,), "norm", 0.1)])]
     return ([Group("", None, top_leaves(cfg))]
             + [Group(f"dense_{i}", None, _block(cfg, _mlp("mlp", d, cfg["d_ff"])))
                for i in range(n)]
-            + [Group("layers", cfg["num_layers"] - n, _block(cfg, moe))])
+            + [Group("layers", cfg["num_layers"] - n, _block(cfg, moe))]
+            + (mtp if cfg.get("mtp") else []))
 '''
 
 HYBRID = '''
@@ -146,6 +155,53 @@ def groups(cfg):
             Group("layers", cfg["num_layers"] // every, block)]
 '''
 
+
+def check_tree(cfg, seed):
+    """The layout's tree against the port's own: keys and shapes those of
+    ``Model.param_specs()``, every leaf bf16, ``nbytes`` its bytes, and each
+    group's last row made again alone, bit for bit, by ``iter_group`` and by
+    ``leaf``.  Returns the groups."""
+    params = weights.make_params(cfg, seed, "cpu")
+    flat = {}
+
+    def walk(t, pre=""):
+        for k, v in t.items():
+            walk(v, f"{pre}{k}/") if isinstance(v, dict) else flat.__setitem__(pre + k, v)
+
+    walk(params)
+    specs = Model(ModelConfig(**cfg)).param_specs()
+    assert {k: tuple(v.shape) for k, v in flat.items()} == {k: s[0] for k, s in specs.items()}
+    assert all(v.dtype == torch.bfloat16 for v in flat.values())
+    assert weights.nbytes(cfg) == sum(2 * v.numel() for v in flat.values())
+    groups = weights.layout(cfg)
+    for g in groups:
+        row = -1 if g.rows is None else g.rows - 1
+        again = dict(weights.iter_group(cfg, seed, g.prefix, row, torch.bfloat16, "cpu"))
+        assert list(again) == [k for k, *_ in g.leaves]
+        for k, t in again.items():
+            path = f"{g.prefix}/{k}" if g.prefix else k
+            assert torch.equal(t, flat[path] if row < 0 else flat[path][row]), path
+        key = g.leaves[-1][0]
+        one = weights.leaf(cfg, seed, key if g.prefix in ("", "layers") else f"{g.prefix}/{key}",
+                           row)
+        assert torch.equal(one, again[key])
+    return groups
+
+
+# every shipped layout, crossed with the port's smoke configurations of its
+# family: a layout file added later gets its cases here with no edit
+SHIPPED = [(p.stem, arch) for p in sorted((SB / "layouts").glob("*.py"))
+           if p.name != "__init__.py"
+           for arch in ARCH_IDS if get_smoke_config(arch).arch_type == p.stem]
+
+
+@pytest.mark.parametrize("family,arch", SHIPPED, ids=[f"{f}-{a}" for f, a in SHIPPED])
+def test_every_shipped_layout_builds_the_ports_tree(family, arch):
+    cfg = dataclasses.asdict(get_smoke_config(arch))
+    assert cfg["arch_type"] == family
+    check_tree(cfg, 2**31 + 41)
+
+
 # run in a copy of servebench that holds the layout, in a process of its own
 DRIVE = '''
 import dataclasses, json, sys
@@ -159,31 +215,12 @@ from repro_torch.serving.engine import Engine, Request
 from servebench import weights
 
 assert weights.__file__.startswith(%r), weights.__file__
+%s
 cfg = dataclasses.asdict(get_smoke_config(%r))
 seed = 2**31 + 41
-params = weights.make_params(cfg, seed, "cpu")
-flat = {}
-def walk(t, pre=""):
-    for k, v in t.items():
-        walk(v, f"{pre}{k}/") if isinstance(v, dict) else flat.__setitem__(pre + k, v)
-walk(params)
+groups = check_tree(cfg, seed)
 model = Model(ModelConfig(**cfg))
-specs = model.param_specs()
-assert {k: tuple(v.shape) for k, v in flat.items()} == {k: s[0] for k, s in specs.items()}
-assert all(v.dtype == torch.bfloat16 for v in flat.values())
-assert weights.nbytes(cfg) == sum(2 * v.numel() for v in flat.values())
-groups = weights.layout(cfg)
-for g in groups:
-    row = -1 if g.rows is None else g.rows - 1
-    again = dict(weights.iter_group(cfg, seed, g.prefix, row, torch.bfloat16, "cpu"))
-    assert list(again) == [k for k, *_ in g.leaves]
-    for k, t in again.items():
-        path = f"{g.prefix}/{k}" if g.prefix else k
-        assert torch.equal(t, flat[path] if row < 0 else flat[path][row]), path
-    key = g.leaves[-1][0]
-    one = weights.leaf(cfg, seed, key if g.prefix in ("", "layers") else f"{g.prefix}/{key}", row)
-    assert torch.equal(one, again[key])
-eng = Engine(model, params, batch=2, max_len=64)
+eng = Engine(model, weights.make_params(cfg, seed, "cpu"), batch=2, max_len=64)
 req = Request(rid=0, prompt=np.arange(5, 29, dtype=np.int32), max_new_tokens=4)
 eng.admit(req)
 eng.step()
@@ -200,9 +237,10 @@ def test_a_new_family_joins_as_one_layout_file(tmp_path, arch, family, source, w
     assert get_smoke_config(arch).arch_type == family
     sb = tmp_path / "servebench"
     shutil.copytree(SB, sb, ignore=shutil.ignore_patterns("__pycache__"))
-    assert not (SB / "layouts" / f"{family}.py").exists()
+    # the test's own layout, in place of any shipped file of that name
     (sb / "layouts" / f"{family}.py").write_text(source)
-    code = DRIVE % (str(tmp_path), str(ROOT / "src"), str(sb), arch)
+    code = DRIVE % (str(tmp_path), str(ROOT / "src"), str(sb), inspect.getsource(check_tree),
+                    arch)
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
