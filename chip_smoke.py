@@ -8,20 +8,26 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: the six CUDA libraries (the four forward kernels and the
-   backward kernels of flash attention and the SSD scan) compiled by nvcc
-   from ``src/repro_torch/kernels/csrc``, one nvcc each, all started
-   together; ptxas's registers, spills and wgmma/setmaxnreg notes; each
-   library's count of tensor-core instructions from ``cuobjdump -sass``:
-   ``hmma`` (mma.sync) and ``hgmma`` (Hopper's wgmma), whose sum must not
-   be 0 for any of the six, and ``hgmma`` not 0 for flash attention's two
-   libraries (bf16 at head dim 64 and 128 runs on wgmma);
+2. build: the seven CUDA libraries (the four forward kernels, the
+   backward kernels of flash attention and the SSD scan, and the serving
+   paths' RMSNorm and rotary) compiled by nvcc from
+   ``src/repro_torch/kernels/csrc``, one nvcc each, all started together;
+   ptxas's registers, spills and wgmma/setmaxnreg notes; each library's
+   count of tensor-core instructions from ``cuobjdump -sass``: ``hmma``
+   (mma.sync) and ``hgmma`` (Hopper's wgmma), whose sum must not be 0 for
+   any but the elementwise norm and rotary, and ``hgmma`` not 0 for flash
+   attention's two libraries (bf16 at head dim 64 and 128 runs on wgmma);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' shapes (attention at qwen3-8b's, zamba2-1.2b's,
    granite-20b's, phi4-mini-3.8b's (G = 3) and internvl2-1b's (G = 7), at
    head_dim 16 (phi4-mini's smoke heads) in bf16 and float32, the ring
    prefill's batch-8 window, the flat decode on prefix and ring masks, the
-   SSD scan at mamba2-370m's and zamba2-1.2b's),
+   SSD scan at mamba2-370m's and zamba2-1.2b's, the RMSNorm, alone and
+   behind its residual add, and the rotary at granite-20b's admission
+   (2,048 tokens: rows of 6,144, q of 48 heads of 128 and one k head)
+   and decode step (32 slots) in bf16, each held to one bf16 ulp of the
+   plain ops with 99.9% of its elements equal (the norm's rows before the
+   weight's product, which must round exactly as the plain ops round it)),
    each flash line naming the variant that ran (``variant``: ``wgmma``,
    ``mma_sync`` or ``f32``, as ``flash_attention.variant`` chooses by dtype
    and head dim),
@@ -240,6 +246,8 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 4, 1024, 3e-4
 
 # the libraries whose bf16 kernels at head dim 64 and 128 are wgmma products
 WGMMA_LIBS = ("flash_attention", "flash_attention_bwd")
+# the libraries of elementwise kernels, bound by bytes: no tensor-core instruction
+ELEMENTWISE_LIBS = ("norm_rope",)
 
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -247,6 +255,7 @@ PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 SSM_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu"
+NORM_ROPE_SOURCE = "src/repro_torch/kernels/csrc/norm_rope.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention.py:74"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:83"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:89"
@@ -259,6 +268,25 @@ SSM_BWD_REPLACES = "src/repro/models/ssm.py:60"
 # backward was the plain version's gradient recomputed, before the backward
 # kernels (PERF.md §6)
 WAS_MS = {"flash": 8.6756, "flash_window": 2.3816, "scan": 4.0175}
+
+
+def norm_rope_launches(cfg, passes: int) -> dict:
+    """The norm and rotary launches of ``passes`` serving passes (each
+    prefill and each decode step): a block's pre-norms (ln1 and ln2; a
+    Mamba2 layer's one; the hybrid's shared attention's one), a GQA
+    attention's qk-norm pair and its one rotary call (MLA keeps its own
+    plain norms and rotary), and the final norm."""
+    if cfg.arch_type == "ssm":
+        return {"rmsnorm": passes * (cfg.num_layers + 1), "rope": 0}
+    gqa = cfg.attention_kind == "gqa"
+    per_attn = 2 if gqa and cfg.qk_norm else 0
+    if cfg.arch_type == "hybrid":
+        n_attn = cfg.num_layers // cfg.shared_attn_every
+        norms = cfg.num_layers + n_attn * (1 + per_attn)
+    else:
+        n_attn = cfg.num_layers
+        norms = n_attn * (2 + per_attn)
+    return {"rmsnorm": passes * (norms + 1), "rope": passes * n_attn * gqa}
 
 
 def expected(ops, **counts) -> dict:
@@ -566,6 +594,117 @@ def check_ssm(torch, ops, ssm_mod, rng, cfg, S):
                 library_ms=None)
 
 
+def bf16_ulps(torch, got, want):
+    """(the most bf16 ulps between two bf16 tensors, the share of equal
+    elements)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    ulps = (ordered(got) - ordered(want)).abs()
+    return int(ulps.max().item()), float((ulps == 0).float().mean().item())
+
+
+def check_norm(torch, ops, nr_mod, rng, rows, D, residual, eps=1e-5):
+    """The RMSNorm kernel (behind its residual add with ``residual``)
+    against the model's plain norm at a serving shape in bf16: the normed
+    rows (a weight of ones) at most one ulp apart, 99.9% of them equal; the
+    weight's product rounded exactly as the plain ops round it, the scaled
+    rows 99.9% equal, the sum equal; timed beside the plain chain,
+    PyTorch's ``rms_norm`` (no residual) and the byte bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.common import rmsnorm
+
+    dtype = torch.bfloat16
+    gen = card_generator(torch, rng)
+    set_bytes = rows * D * 2 * (2 + 2 * residual)
+    sets = [(randn(torch, (rows, D), dtype, gen), randn(torch, (rows, D), dtype, gen),
+             randn(torch, (D,), dtype, gen))
+            for _ in range(min(8, max(1, math.ceil(150e6 / set_bytes))))]
+
+    def kernel(x, r, w):
+        return ops.rmsnorm(x, w, eps, residual=r) if residual else ops.rmsnorm(x, w, eps)
+
+    def plain(x, r, w):  # the ops the model ran before the kernel
+        if residual:
+            s = r + x
+            return rmsnorm(s, w, eps), s
+        return rmsnorm(x, w, eps)
+
+    x, r, w = sets[0]
+    ones = torch.ones_like(w)
+    got, want = kernel(x, r, w), plain(x, r, w)
+    normed, want_normed = kernel(x, r, ones), plain(x, r, ones)
+    sum_ok = not residual or torch.equal(got[1], want[1])
+    if residual:
+        got, want, normed, want_normed = got[0], want[0], normed[0], want_normed[0]
+    torch.cuda.synchronize()
+    ulps, equal_normed = bf16_ulps(torch, normed, want_normed)
+    scaled_ok = torch.equal(got, normed * w)
+    equal = bf16_ulps(torch, got, want)[1]
+    err = (got.float() - want.float()).abs().max().item()
+    nx = rotating(sets)
+    ms = cuda_ms(torch, lambda: kernel(*nx()), 100)
+    plain_ms = cuda_ms(torch, lambda: plain(*nx()), 20)
+    library_ms = None
+    if not residual:  # yardstick only: never called by the port
+        library_ms = cuda_ms(torch, lambda: (lambda x, r, w: F.rms_norm(x, (D,), w, eps))(*nx()),
+                             20)
+    flops, nbytes = nr_mod.work_rmsnorm(rows, D, 2, residual)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    phase("kernels", kernel="rmsnorm", dtype="bfloat16", rows=rows, D=D, residual=residual,
+          normed_max_ulps=ulps, normed_equal=f"{equal_normed:.6f}", scaled_exact=scaled_ok,
+          equal_share=f"{equal:.6f}", sum_equal=sum_ok, max_abs_err=f"{err:.3e}",
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms="none" if library_ms is None else f"{library_ms:.4f}",
+          bound_ms=f"{b_ms:.4f}", bound_by=b_by, roofline=f"{b_ms / ms:.3f}")
+    if ulps > 1 or min(equal_normed, equal) < 0.999 or not (scaled_ok and sum_ok):
+        fail(f"rmsnorm rows={rows} D={D} residual={residual}: normed {ulps} ulps, "
+             f"{equal_normed:.6f} equal; scaled exact {scaled_ok}, {equal:.6f} equal; "
+             f"sum equal {sum_ok}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def check_rope(torch, ops, nr_mod, rng, cfg, B, S):
+    """The rotary kernel against ``apply_rope`` of q and k at a config's
+    heads in bf16, positions from -1 (an idle slot) to 8,191: at most one
+    ulp apart, 99.9% equal; timed beside the plain chain and the byte
+    bound.  The kernel rotates in place, so the timed calls keep rotating
+    one set of inputs."""
+    from repro_torch.models.common import apply_rope
+
+    H, KV, hd, theta = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rope_theta
+    dtype = torch.bfloat16
+    gen = card_generator(torch, rng)
+    set_bytes = B * S * (H + KV) * hd * 2
+    sets = [(randn(torch, (B, S, H, hd), dtype, gen), randn(torch, (B, S, KV, hd), dtype, gen),
+             torch.as_tensor(rng.integers(-1, 8192, size=(B, S)), device="cuda"))
+            for _ in range(min(8, max(1, math.ceil(150e6 / set_bytes))))]
+    q, k, pos = sets[0]
+    want = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
+    got = ops.rope(q, k, pos, theta)
+    torch.cuda.synchronize()
+    (uq, eq), (uk, ek) = bf16_ulps(torch, got[0], want[0]), bf16_ulps(torch, got[1], want[1])
+    ulps, equal = max(uq, uk), min(eq, ek)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    nx = rotating(sets)
+    ms = cuda_ms(torch, lambda: ops.rope(*nx(), theta), 100)
+    plain_ms = cuda_ms(torch, lambda: (lambda q, k, p: (apply_rope(q, p, theta),
+                                                        apply_rope(k, p, theta)))(*nx()), 20)
+    flops, nbytes = nr_mod.work_rope(B * S, H, KV, hd, 2)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    phase("kernels", kernel="rope", config=cfg.name, dtype="bfloat16", B=B, S=S, H=H, KV=KV,
+          D=hd, max_ulps=ulps, equal_share=f"{equal:.6f}", max_abs_err=f"{err:.3e}",
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          roofline=f"{b_ms / ms:.3f}")
+    if ulps > 1 or equal < 0.999:
+        fail(f"rope {cfg.name} B={B} S={S}: {ulps} ulps, {equal:.6f} equal")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 # -- phase 3 (training): the gradients through the kernels ---------------------------
 
 
@@ -869,7 +1008,7 @@ def ring_parity(torch, ops, Model, tree_to, get_smoke_config, long_context_varia
     counts = ops.launches()
     gqa = cfg.attention_kind == "gqa"
     expect = expected(ops, decode_attention=12 * cfg.num_layers * gqa,
-                      flash_attention=cfg.num_layers * gqa)
+                      flash_attention=cfg.num_layers * gqa, **norm_rope_launches(cfg, 1 + 12))
     phase("parity", config=f"{cfg.name}-ring{cfg.sliding_window}", backend="ring",
           cpu_tokens=want, cuda_tokens=got, launches=json.dumps(counts))
     if got != want:
@@ -1019,7 +1158,8 @@ def ring_main(torch, ops, Model, long_context_variant, cfg, params, rng, window=
         torch.cuda.synchronize()
         decode_s = time.monotonic() - t0
     counts = ops.launches()
-    expect = expected(ops, decode_attention=steps * L, flash_attention=L)
+    expect = expected(ops, decode_attention=steps * L, flash_attention=L,
+                      **norm_rope_launches(model.cfg, 1 + steps))
     want_pos = torch.arange(S - window, S, dtype=torch.int32, device="cuda")
     want_pos[:steps] = torch.arange(S, S + steps, dtype=torch.int32, device="cuda")
     slots_ok = bool((cache["layers"]["slot_pos"] == want_pos).all().item())
@@ -1137,7 +1277,8 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
                params, seed, backend, expect_backend, expect_counts):
     """Serve 16 requests of 128-1024 prompt tokens at full width on
     ``backend``; check the launch counts against ``expect_counts(admissions,
-    steps)``; feed the measured throughput into ``measured_for(arch)``, a
+    steps)`` (the attention and scan kernels) and the norm and rotary
+    launches of as many serving passes; feed the measured throughput into ``measured_for(arch)``, a
     MeasuredProfile round the arch's H100 profile, credited to a whole card
     (size 7), and print the §8.3 correction.  The traffic comes from its
     own generator, seeded by ``seed`` and the config's name, so it does not
@@ -1190,7 +1331,8 @@ def serve_main(torch, ops, Engine, Request, run_closed_loop, measured_for, model
     counts = ops.launches()
     engine._prefill, engine._decode = orig_prefill, orig_decode
     bad = int(probe["bad"].item())
-    expect = expected(ops, **expect_counts(probe["prefill"], engine.steps))
+    expect = expected(ops, **expect_counts(probe["prefill"], engine.steps),
+                      **norm_rope_launches(cfg, probe["prefill"] + engine.steps))
     pct = lambda xs, p: float(np.percentile(xs, p)) if xs else float("nan")  # noqa: E731
     phase("serve", config=cfg.name, backend=engine.kv_backend, served=stats.served,
           requests=len(reqs), tokens=stats.tokens,
@@ -1860,6 +2002,7 @@ def main() -> None:
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import decode_attention as dec_mod
         from repro_torch.kernels import flash_attention as fa_mod
+        from repro_torch.kernels import norm_rope as nr_mod
         from repro_torch.kernels import paged_attention as paged_mod
         from repro_torch.kernels import ssm_scan as ssm_mod
         from repro_torch import training
@@ -1898,7 +2041,7 @@ def main() -> None:
         hmma = sum("HMMA" in line for line in sass)
         hgmma = sum("HGMMA" in line for line in sass)
         phase("sass", kernel=name, hmma=hmma, hgmma=hgmma)
-        if hmma + hgmma == 0:
+        if hmma + hgmma == 0 and name not in ELEMENTWISE_LIBS:
             fail(f"{name}: no tensor-core instruction (HMMA or HGMMA) in its library")
         if name in WGMMA_LIBS and hgmma == 0:
             fail(f"{name}: no HGMMA instruction: its bf16 kernels at D 64 and 128 use wgmma")
@@ -1936,6 +2079,20 @@ def main() -> None:
     check_decode(torch, ops, dec_mod, torch.bfloat16, rng, granite, 8, 2048, window=512)
     check_decode(torch, ops, dec_mod, torch.float32, rng, granite, 8, 2048)
     check_decode(torch, ops, dec_mod, torch.bfloat16, rng, qwen, 8, 2048)
+    # the serving paths' norm and rotary at granite-20b's admission (2,048
+    # tokens) and decode step (32 slots); qwen3-8b's per-head qk-norm and
+    # its eight KV heads
+    norm_rope_rng = np.random.default_rng([args.seed, 5])
+    results["rmsnorm"] = check_norm(torch, ops, nr_mod, norm_rope_rng, 2048, granite.d_model,
+                                    False)
+    results["rmsnorm_residual"] = check_norm(torch, ops, nr_mod, norm_rope_rng, 2048,
+                                             granite.d_model, True)
+    for rows in (32, 1):
+        check_norm(torch, ops, nr_mod, norm_rope_rng, rows, granite.d_model, True)
+    check_norm(torch, ops, nr_mod, norm_rope_rng, 1024 * qwen.num_heads, qwen.head_dim, False)
+    results["rope"] = check_rope(torch, ops, nr_mod, norm_rope_rng, granite, 1, 2048)
+    check_rope(torch, ops, nr_mod, norm_rope_rng, granite, 32, 1)
+    check_rope(torch, ops, nr_mod, norm_rope_rng, qwen, 1, 1024)
     # head_dim 16 (phi4-mini's smoke heads, G = 3) in both dtypes; phi4-mini's
     # (G = 3) and internvl2-1b's (G = 7) full shapes
     phi4, intern, music = (
@@ -1995,7 +2152,8 @@ def main() -> None:
         uses = {"decode_attention": attends and backend == "flat",
                 "flash_attention": attends,
                 "paged_decode_attention": attends and backend == "paged",
-                "ssm_scan": scfg.arch_type in ("ssm", "hybrid")}
+                "ssm_scan": scfg.arch_type in ("ssm", "hybrid"),
+                "rmsnorm": True, "rope": attends}
         phase("parity", config=scfg.name, backend=backend, cpu_tokens=want, cuda_tokens=got,
               launches=json.dumps(counts))
         if got != want:
@@ -2202,6 +2360,11 @@ def main() -> None:
         dict(name="ssm_scan_bwd", route="cuda", source=SSM_BWD_SOURCE,
              replaces=SSM_BWD_REPLACES, launches=launches["ssm_scan_bwd"],
              **results["scan_grad"]["bwd"]),
+        # no Pallas kernel: the reference's jnp norm and rotary, fused by XLA
+        dict(name="rmsnorm", route="cuda", source=NORM_ROPE_SOURCE, replaces="none",
+             launches=launches["rmsnorm"], **results["rmsnorm"]),
+        dict(name="rope", route="cuda", source=NORM_ROPE_SOURCE, replaces="none",
+             launches=launches["rope"], **results["rope"]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

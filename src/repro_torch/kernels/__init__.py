@@ -9,6 +9,10 @@ PyTorch version:
     (``csrc/paged_attention.cu``)
   * ``ssm_scan``         — the Mamba2 SSD chunked scan (``csrc/ssm_scan.cu``)
 
+and two that replace no Pallas kernel, the serving paths' RMSNorm (with its
+residual add) and rotary embedding in one pass each (``norm_rope``,
+``csrc/norm_rope.cu``).
+
 :mod:`repro_torch.kernels.ops` holds the public wrappers; the kernels are
 compiled by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`), never
 at import.

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("decode_attention", "flash_attention", "paged_attention", "ssm_scan",
-           "flash_attention_bwd", "ssm_scan_bwd")
+           "flash_attention_bwd", "ssm_scan_bwd", "norm_rope")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -147,6 +147,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "ssm_scan_bwd":
         fn = lib.repro_ssm_scan_bwd
         fn.argtypes = [p] * 18 + [i] * 6 + [p, i64, p]
+    elif name == "norm_rope":
+        lib.repro_rmsnorm.argtypes = [p] * 5 + [i, i64, i, i64, i64, f, p]
+        lib.repro_rmsnorm.restype = ctypes.c_int
+        fn = lib.repro_rope
+        fn.argtypes = [p, p, p] + [i] * 6 + [p, f, p]
     else:
         raise ValueError(f"unknown kernel {name!r}")
     fn.restype = ctypes.c_int

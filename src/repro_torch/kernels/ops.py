@@ -57,6 +57,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import norm_rope as _nr
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssm_scan as _ssm
 
@@ -426,11 +427,76 @@ def ssm_scan(
     return _scan_kernel(x, dt, A, B_, C_, chunk)[:2]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, for its route; any other tensor as it is."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def rmsnorm(
+    x: torch.Tensor,  # (..., D)
+    w: torch.Tensor,  # (D,)
+    eps: float = 1e-6,
+    residual: Optional[torch.Tensor] = None,  # x's shape: the residual stream
+):
+    """RMSNorm over the last axis, rounded as
+    :func:`repro_torch.models.common.rmsnorm` rounds it.  With ``residual``
+    it norms ``residual + x`` (rounded to x's dtype) and returns (the normed
+    rows, that sum), the sum being the new residual stream; without, the
+    normed rows.  On the CPU the plain ops run, on DTensors too, as they
+    always ran; on a card one launch makes fresh outputs."""
+    _refuse_grad("rmsnorm", x, w, *(() if residual is None else (residual,)))
+    route = _route(_local(x), "rmsnorm")
+    if route == "plain":
+        return _nr.rmsnorm_plain(x, w, eps, residual)
+    if _is_dtensor(x):
+        rows = (0, 2 if x.dim() == 4 else None)  # batch, and heads of a per-head norm
+        args, dims, outs = (x, w), (rows, (None, None)), (rows,)
+        if residual is not None:
+            args, dims, outs = args + (residual,), dims + (rows,), (rows, rows)
+        return on_shards(lambda x, w, *r: rmsnorm(x, w, eps, *r), args, dims, outs)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    s = None if residual is None else torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if route == "fake":
+        D = x.shape[-1]
+        _book(x, "rmsnorm", _nr.work_rmsnorm(x.numel() // D, D, x.element_size(),
+                                             residual is not None))
+    else:
+        _nr.launch_rmsnorm(x, w, out, eps, residual, s)
+        LAUNCHES["rmsnorm"] += 1
+    return out if residual is None else (out, s)
+
+
+def rope(
+    q: torch.Tensor,  # (B, S, H, hd) — model layout
+    k: torch.Tensor,  # (B, S, KV, hd)
+    positions: torch.Tensor,  # (B, S) int64
+    theta: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split-half rotary embedding of q and k at ``positions``, as
+    :func:`repro_torch.models.common.apply_rope` computes it; returns (q,
+    k).  On a card one launch rotates q and k in place and returns them;
+    on the CPU the plain ops make new tensors, on DTensors too."""
+    _refuse_grad("rope", q, k)
+    route = _route(_local(q), "rope")
+    if route == "plain":
+        return _nr.rope_plain(q, k, positions, theta)
+    if _is_dtensor(q):
+        return on_shards(lambda q, k, p: rope(q, k, p, theta), (q, k, positions),
+                          ((0, 2), (0, 2), (0, None)), ((0, 2), (0, 2)))
+    B, S, H, hd = q.shape
+    if route == "fake":
+        _book(q, "rope", _nr.work_rope(B * S, H, k.shape[2], hd, q.element_size()))
+    else:
+        _nr.launch_rope(q, k, positions, theta)
+        LAUNCHES["rope"] += 1
+    return q, k
+
+
 # each kernel's launches on a card, by its wrapper's name (the backward
 # kernels by their forward's, with "_bwd")
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("decode_attention", "flash_attention", "paged_decode_attention", "ssm_scan",
-     "flash_attention_bwd", "ssm_scan_bwd"), 0)
+     "flash_attention_bwd", "ssm_scan_bwd", "rmsnorm", "rope"), 0)
 
 
 def reset_launches() -> None:

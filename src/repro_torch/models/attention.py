@@ -49,31 +49,48 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _gqa_qkv(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+def _gqa_project(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, norm
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v split into heads, q and k normed by ``norm`` under
+    ``qk_norm``."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = split_heads(x @ p["wq"], H, hd)
     k = split_heads(x @ p["wk"], KV, hd)
     v = split_heads(x @ p["wv"], KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        q = norm(q, p["q_norm"], cfg.norm_eps)
+        k = norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _gqa_qkv(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training path's q, k, v: the plain norm and rotary."""
+    q, k, v = _gqa_project(p, cfg, x, rmsnorm)
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _gqa_qkv_serving(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The serving paths' q, k, v: the same values through the norm and
+    rotary wrappers (one kernel each on a card, no gradient)."""
+    q, k, v = _gqa_project(p, cfg, x, ops.rmsnorm)
+    q, k = ops.rope(q, k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _gqa_attend(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+    p: Params, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_hint: Optional[PartitionSpec] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence causal (optionally sliding-window) attention over any
     ``S``, the window a mask over the whole sequence; returns (out, k, v).
     ``kv_hint``: a partition spec k/v take once, above the attention (the
     reference's constraint above its tile loop; DTensors only)."""
-    B, S, _ = x.shape
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    B, S = q.shape[:2]
     k, v = constrain(k, kv_hint), constrain(v, kv_hint)
     o = kernels_bridge.causal_attention(q, k, v, window=cfg.sliding_window)
     return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
@@ -84,7 +101,7 @@ def gqa_forward(
     kv_hint: Optional[PartitionSpec] = None,
 ) -> torch.Tensor:
     """Full-sequence causal attention without a cache (the training path)."""
-    return _gqa_attend(p, cfg, x, positions, kv_hint)[0]
+    return _gqa_attend(p, cfg, *_gqa_qkv(p, cfg, x, positions), kv_hint)[0]
 
 
 def gqa_prefill(
@@ -100,7 +117,7 @@ def gqa_prefill(
     W = cfg.sliding_window
     if W and W < S and S % W:
         raise ValueError(f"prefill length {S} must be a multiple of the ring window {W}")
-    out, k, v = _gqa_attend(p, cfg, x, positions, kv_hint)
+    out, k, v = _gqa_attend(p, cfg, *_gqa_qkv_serving(p, cfg, x, positions), kv_hint)
     if W and W < S:
         slot_pos = torch.arange(S - W, S, dtype=torch.int32, device=x.device)
         return out, {"k": k[:, S - W:], "v": v[:, S - W:], "slot_pos": slot_pos.expand(B, W)}
@@ -193,7 +210,7 @@ def gqa_decode(
     H, hd = cfg.num_heads, cfg.head_dim
     cpos, derived_live = normalize_pos(pos, B, x.device)
     live = derived_live if live is None else live
-    q, k_new, v_new = _gqa_qkv(p, cfg, x, cpos[:, None])
+    q, k_new, v_new = _gqa_qkv_serving(p, cfg, x, cpos[:, None])
     if "slot_pos" in cache:
         W = cache["k"].shape[1]
         slot = cpos % W
@@ -257,7 +274,7 @@ def gqa_decode_paged(
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
     cpos, live = normalize_pos(pos, B, x.device)
-    q, k_new, v_new = _gqa_qkv(p, cfg, x, cpos[:, None])
+    q, k_new, v_new = _gqa_qkv_serving(p, cfg, x, cpos[:, None])
     pool_k, pool_v = cache["pool_k"], cache["pool_v"]
     ps = pool_k.shape[1]
     page = page_tables.gather(1, (cpos // ps)[:, None])[:, 0].long()

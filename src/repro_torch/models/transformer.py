@@ -36,10 +36,22 @@ Caches are updated in place (see :mod:`repro_torch.models.attention` and
 reference's do.
 
 The serving paths (``prefill``, the decode steps, ``scatter_prefill``)
-name their parts for a torch profiler (:func:`repro_torch.kernels.ops.span`):
-``model.embed``, one ``model.attention`` (norm, attention, residual add)
-and one ``model.mlp`` (or MoE) a block, one ``model.ssm`` a Mamba2 layer,
-``model.head`` and ``model.scatter``.  The training paths name none.
+run their RMSNorms, residual adds and rotary through the kernel wrappers
+:func:`repro_torch.kernels.ops.rmsnorm` and :func:`~repro_torch.kernels.ops.rope`
+(one CUDA kernel each on a card, the plain ops on the CPU).  A sublayer's
+output is added to the residual stream by the next norm, in the same
+pass: the attention's by ``ln2``, the MLP's by the next block's ``ln1``
+and the last one's by the final norm, on the rows the logits read.  The
+training paths keep the plain norm and rotary, which autograd
+differentiates.
+
+The serving paths name their parts for a torch profiler
+(:func:`repro_torch.kernels.ops.span`): ``model.embed``, one
+``model.attention`` (the previous sublayer's residual add with the norm,
+then attention) and one ``model.mlp`` (or MoE; the attention's residual
+add with its norm, then the MLP) a block, one ``model.ssm`` a Mamba2
+layer, ``model.head`` and ``model.scatter``.  The training paths name
+none.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import span
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -91,6 +104,15 @@ def _attn_forward(p: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch
 def _attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device):
     make = attn.mla_init_cache if cfg.attention_kind == "mla" else attn.gqa_init_cache
     return make(cfg, batch, max_len, DTYPES[cfg.dtype], device)
+
+
+def _add_norm(x: torch.Tensor, y: Optional[torch.Tensor], w: torch.Tensor, eps: float):
+    """The residual stream ``x`` with a sublayer's output ``y`` added (None:
+    nothing pending), normed by ``w``: (the normed rows, the stream), one
+    kernel on a card."""
+    if y is None:
+        return ops.rmsnorm(x, w, eps), x
+    return ops.rmsnorm(y, w, eps, residual=x)
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -248,8 +270,12 @@ class Model:
         return embedding(params["embed"], tokens)
 
     def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        return self._project(params, rmsnorm(h, params["final_norm"], self.cfg.norm_eps))
+
+    def _project(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        """Logits of final-normed hidden states, the vocabulary's padding
+        masked."""
         cfg = self.cfg
-        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         out = h @ head
         if cfg.padded_vocab != cfg.vocab_size:
@@ -263,13 +289,13 @@ class Model:
                 out[..., cfg.vocab_size:] = -1e30
         return out
 
-    def _ffn_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
-        """A block's second half: its MLP, or its MoE (the aux loss is for
-        training and is dropped here, as the reference's serving drops it)."""
-        h = rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
+    def _ffn(self, lp: Params, h: torch.Tensor) -> torch.Tensor:
+        """A serving block's MLP, or its MoE (the aux loss is for training
+        and is dropped here, as the reference's serving drops it), on the
+        normed ``h``."""
         if "moe" in lp:
-            return x + settle(self._moe(lp["moe"], h)[0])
-        return x + settle(mlp_forward(lp["mlp"], h))
+            return settle(self._moe(lp["moe"], h)[0])
+        return settle(mlp_forward(lp["mlp"], h))
 
     def _moe(self, p: Params, h: torch.Tensor):
         """The MoE layer: expert parallel over ``moe_mesh``'s "model" axis
@@ -377,42 +403,45 @@ class Model:
         positions = torch.arange(S, device=x.device).expand(B, S)
         eps = cfg.norm_eps
         caches = []
+        y = None  # the last sublayer's output, added to x by the next norm
         for lp in self._blocks(params):
             if cfg.arch_type in BLOCK_TYPES:
                 with span("model.attention"):
-                    a, c = _attn_prefill(lp["attn"], cfg, rmsnorm(x, lp["ln1"], eps),
-                                         positions, self.kv_hint)
-                    x = x + settle(a)
+                    h, x = _add_norm(x, y, lp["ln1"], eps)
+                    a, c = _attn_prefill(lp["attn"], cfg, h, positions, self.kv_hint)
                 with span("model.mlp"):
-                    x = self._ffn_residual(lp, x)
+                    h, x = _add_norm(x, settle(a), lp["ln2"], eps)
+                    y = self._ffn(lp, h)
             elif cfg.arch_type == "ssm":
                 with span("model.ssm"):
-                    y, c = ssm_mod.ssm_prefill(lp, cfg, rmsnorm(x, lp["ln"], eps), lengths)
-                    x = x + settle(y)
+                    h, x = _add_norm(x, y, lp["ln"], eps)
+                    y, c = ssm_mod.ssm_prefill(lp, cfg, h, lengths)
+                    y = settle(y)
             else:  # hybrid superblock: Mamba2 sublayers, then the shared attention
                 c = {}
                 for j in range(cfg.shared_attn_every):
                     mp = lp[f"mamba_{j}"]
                     with span("model.ssm"):
-                        y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(
-                            mp, cfg, rmsnorm(x, mp["ln"], eps), lengths
-                        )
-                        x = x + settle(y)
+                        h, x = _add_norm(x, y, mp["ln"], eps)
+                        y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(mp, cfg, h, lengths)
+                        y = settle(y)
                 shared = params["shared_attn"]
                 with span("model.attention"):
-                    a, c["attn"] = _attn_prefill(
-                        shared, cfg, rmsnorm(x, shared["ln"], eps), positions, self.kv_hint
-                    )
-                    x = x + settle(a)
+                    h, x = _add_norm(x, y, shared["ln"], eps)
+                    a, c["attn"] = _attn_prefill(shared, cfg, h, positions, self.kv_hint)
+                    y = settle(a)
             caches.append(c)
         cache = {f"dense_{i}": caches[i] for i in range(self.n_dense)}
         cache["layers"] = _stack(caches[self.n_dense:])
         with span("model.head"):
+            # the last sublayer's output is added on the rows the logits read
             if lengths is None:
-                last = x[:, -1:]
+                x, y = x[:, -1:], y[:, -1:]
             else:
-                last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None, :]
-            return self.logits(params, last), cache
+                rows = (torch.arange(B, device=x.device), lengths.long() - 1)
+                x, y = x[rows][:, None, :], y[rows][:, None, :]
+            h, _ = _add_norm(x, y, params["final_norm"], eps)
+            return self._project(params, h), cache
 
     # ----------------------------------------------------------------- decode --
     def _layer_cache(self, batch: int, device: torch.device, attn_cache) -> Params:
@@ -554,29 +583,32 @@ class Model:
 
         with span("model.embed"):
             x = self.embed(params, token)
+        y = None  # the last sublayer's output, added to x by the next norm
         for lp, lc in zip(self._blocks(params), self._blocks(cache)):
             if cfg.arch_type in BLOCK_TYPES:
                 with span("model.attention"):
-                    x = x + settle(attend(lp["attn"], rmsnorm(x, lp["ln1"], eps), lc))
+                    h, x = _add_norm(x, y, lp["ln1"], eps)
+                    a = attend(lp["attn"], h, lc)
                 with span("model.mlp"):
-                    x = self._ffn_residual(lp, x)
+                    h, x = _add_norm(x, settle(a), lp["ln2"], eps)
+                    y = self._ffn(lp, h)
             elif cfg.arch_type == "ssm":
                 with span("model.ssm"):
-                    y, _ = ssm_mod.ssm_decode(lp, cfg, rmsnorm(x, lp["ln"], eps), lc, rows)
-                    x = x + settle(y)
+                    h, x = _add_norm(x, y, lp["ln"], eps)
+                    y = settle(ssm_mod.ssm_decode(lp, cfg, h, lc, rows)[0])
             else:  # hybrid superblock
                 for j in range(cfg.shared_attn_every):
                     mp = lp[f"mamba_{j}"]
                     with span("model.ssm"):
-                        y, _ = ssm_mod.ssm_decode(
-                            mp, cfg, rmsnorm(x, mp["ln"], eps), lc[f"mamba_{j}"], rows
-                        )
-                        x = x + settle(y)
+                        h, x = _add_norm(x, y, mp["ln"], eps)
+                        y = settle(ssm_mod.ssm_decode(mp, cfg, h, lc[f"mamba_{j}"], rows)[0])
                 shared = params["shared_attn"]
                 with span("model.attention"):
-                    x = x + settle(attend(shared, rmsnorm(x, shared["ln"], eps), lc["attn"]))
+                    h, x = _add_norm(x, y, shared["ln"], eps)
+                    y = settle(attend(shared, h, lc["attn"]))
         with span("model.head"):
-            return self.logits(params, x), cache
+            h, _ = _add_norm(x, y, params["final_norm"], eps)
+            return self._project(params, h), cache
 
     # ------------------------------------------------------ prefill scatter --
     def scatter_prefill(

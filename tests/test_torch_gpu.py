@@ -17,6 +17,7 @@ torch.set_num_threads(2)
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import norm_rope as nr_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_plain  # noqa: E402
 
@@ -847,6 +848,125 @@ def _serve(model, params, backend, **engine_kw):
     return eng, stats, [r.out_tokens for r in reqs]
 
 
+def _ordered(t):
+    """bf16 bit patterns as integers in the order of their values (-0 and
+    +0 both 0), so that neighbouring values differ by 1."""
+    i = t.view(torch.int16).to(torch.int32)
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def _assert_kernel_rounding(got, want, ulps=1):
+    """bf16: no element more than ``ulps`` bf16 ulps from the plain version
+    and at least 99.9% equal (the kernel rounds where the plain ops do;
+    only a float32 sum's order, or powf/cosf against PyTorch's, can move a
+    value across a rounding boundary); float32: within a few of its ulps."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        return
+    diff = (_ordered(got) - _ordered(want)).abs()
+    assert diff.max().item() <= ulps
+    assert (diff == 0).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("rows,D,layout", [
+    (1, 6144, "contiguous"),      # granite-20b's decode, one slot
+    (32, 6144, "contiguous"),     # its decode step of 32 slots
+    (2556, 6144, "contiguous"),   # a code admission's mean prompt
+    (2556 * 8, 128, "contiguous"),  # the per-head qk-norm (qwen3-8b's k heads)
+    (33, 1001, "contiguous"),     # an odd width: one element at a time
+    (17, 6144, "last_rows"),      # the final norm's rows of a prefill, strided
+    (9, 512, "unaligned"),        # rows that start off a 16-byte boundary
+])
+def test_rmsnorm_kernel_matches_the_models_norm(cuda, dtype, residual, rows, D, layout):
+    """The normed rows (a weight of ones) within one bf16 ulp of the plain
+    norm's, 99.9% equal; the weight's product rounded exactly as the plain
+    ops round it (so a one-ulp step of a normed value stays one ulp of it
+    scaled), and the scaled rows 99.9% equal to the plain norm's."""
+    from repro_torch.models.common import rmsnorm
+
+    rng = np.random.default_rng(rows + D)
+    shape = (rows, 3, D) if layout == "last_rows" else (rows + 1, D)
+    x = _randn(rng, shape, dtype, cuda) * 2
+    r = _randn(rng, shape, dtype, cuda)
+    w = _randn(rng, (D,), dtype, cuda)
+    ones = torch.ones((D,), dtype=dtype, device=cuda)
+    if layout == "last_rows":
+        x, r = x[:, -1:], r[:, -1:]
+    elif layout == "unaligned":
+        x, r = x.flatten()[1:1 + rows * D].view(rows, D), r.flatten()[3:3 + rows * D].view(rows, D)
+    else:
+        x, r = x[:rows], r[:rows]
+    before = ops.LAUNCHES["rmsnorm"]
+    if residual:
+        got, s = ops.rmsnorm(x, w, 1e-5, residual=r)
+        assert torch.equal(s, r + x)
+        normed = ops.rmsnorm(x, ones, 1e-5, residual=r)[0]
+        x = r + x
+    else:
+        got, normed = ops.rmsnorm(x, w, 1e-5), ops.rmsnorm(x, ones, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == before + 2
+    _assert_kernel_rounding(normed, rmsnorm(x, ones, 1e-5))
+    assert torch.equal(got, normed * w)
+    # one ulp of a normed value is at most two of it scaled, and the product rounds once
+    _assert_kernel_rounding(got, rmsnorm(x, w, 1e-5), ulps=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,KV,hd,theta", [(48, 1, 128, 10_000.0),   # granite-20b
+                                           (32, 8, 128, 1e6),        # qwen3-8b
+                                           (24, 8, 96, 10_000.0)])   # a head dim of 96
+def test_rope_kernel_matches_apply_rope_in_place(cuda, dtype, H, KV, hd, theta):
+    from repro_torch.models.common import apply_rope
+
+    rng = np.random.default_rng(H + KV + hd)
+    B, S = 3, 97
+    q = _randn(rng, (B, S, H, hd), dtype, cuda)
+    k = _randn(rng, (B, S, KV, hd), dtype, cuda)
+    positions = torch.stack([
+        torch.arange(-1, S - 1),                              # an idle slot's -1, then 0...
+        torch.as_tensor(rng.integers(0, 8192, S)),            # anywhere up to 8,191
+        torch.full((S,), 8191),
+    ]).to(cuda)
+    want_q, want_k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    before = ops.LAUNCHES["rope"]
+    got_q, got_k = ops.rope(q, k, positions, theta)
+    torch.cuda.synchronize()
+    assert got_q is q and got_k is k and ops.LAUNCHES["rope"] == before + 1
+    _assert_kernel_rounding(got_q, want_q)
+    _assert_kernel_rounding(got_k, want_k)
+    # a decode step's (B, 1) positions, q a view of the projection's rows
+    qkv = _randn(rng, (B, 1, (H + 2 * KV) * hd), dtype, cuda)
+    q1, k1 = qkv[..., :H * hd].view(B, 1, H, hd), qkv[..., H * hd:(H + KV) * hd].view(B, 1, KV, hd)
+    pos = positions[:, -1:]
+    want_q, want_k = apply_rope(q1, pos, theta), apply_rope(k1, pos, theta)
+    v = qkv[..., (H + KV) * hd:].clone()
+    ops.rope(q1, k1, pos, theta)
+    torch.cuda.synchronize()
+    _assert_kernel_rounding(q1, want_q)
+    _assert_kernel_rounding(k1, want_k)
+    assert torch.equal(qkv[..., (H + KV) * hd:], v)  # v's columns untouched
+
+
+def test_norm_and_rope_wrappers_raise_on_unsupported_input(cuda):
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda)
+    pos = torch.zeros((1, 2), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.rmsnorm(x, torch.ones(64, device=cuda))  # a float32 weight
+    with pytest.raises(ValueError, match="w must be"):
+        ops.rmsnorm(x, torch.ones(32, dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError, match="positions must be int64"):
+        ops.rope(q, q, pos.int(), 10_000.0)
+    with pytest.raises(ValueError, match="even"):
+        ops.rope(q[..., :63], q[..., :63], pos, 10_000.0)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.rmsnorm(x.float().requires_grad_(), torch.ones(64, device=cuda))
+
+
 def _staggered(model, params, backend):
     """chip_smoke.py's staggered admissions: one request, two steps, a
     second, a step, a third, then steps until all finish."""
@@ -889,8 +1009,11 @@ def test_paged_engine_replays_one_captured_step_with_the_flat_engines_tokens(cud
     assert got == want
     assert eng.graph_captures == 1 and eng.graph_replays == eng.steps > 0
     admissions = len(got) + stats.preempted
+    norms = L * (4 if model.cfg.qk_norm else 2) + 1  # ln1, ln2, the qk-norm's two; final
     assert counts == dict(counts, paged_decode_attention=eng.steps * L,
-                          flash_attention=admissions * L)
+                          flash_attention=admissions * L,
+                          rmsnorm=(admissions + eng.steps) * norms,
+                          rope=(admissions + eng.steps) * L)
     assert counts["decode_attention"] == counts["ssm_scan"] == 0
 
     flat_eng, want = _staggered(model, params, "flat")
@@ -910,7 +1033,7 @@ def test_paged_engine_replays_one_captured_step_with_the_flat_engines_tokens(cud
     after = ops.launches()
     per_replay = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
     per_eager = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
-    assert per_replay == per_eager == {"paged_decode_attention": L}
+    assert per_replay == per_eager == {"paged_decode_attention": L, "rmsnorm": norms, "rope": L}
     torch.testing.assert_close(replayed, eager, atol=1e-5, rtol=1e-5)
 
     # close() frees the graph; the next step captures anew

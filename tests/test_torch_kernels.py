@@ -370,10 +370,13 @@ def test_reset_launches_zeroes_every_counter():
     ops.LAUNCHES["ssm_scan"] = 7
     ops.LAUNCHES["flash_attention_bwd"] = 11
     ops.LAUNCHES["ssm_scan_bwd"] = 13
+    ops.LAUNCHES["rmsnorm"] = 17
+    ops.LAUNCHES["rope"] = 19
     ops.reset_launches()
     assert ops.launches() == {"decode_attention": 0, "flash_attention": 0,
                               "paged_decode_attention": 0, "ssm_scan": 0,
-                              "flash_attention_bwd": 0, "ssm_scan_bwd": 0}
+                              "flash_attention_bwd": 0, "ssm_scan_bwd": 0,
+                              "rmsnorm": 0, "rope": 0}
 
 
 def test_rows_aligned_guards_the_kernels_16_byte_loads():
