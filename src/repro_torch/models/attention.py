@@ -6,13 +6,14 @@ over the flat or ring latent cache.
 The port of the JAX package's ``models/attention.py``.
 ``gqa_forward`` and ``mla_forward`` are the cacheless training forwards.
 Decode is *ragged*: ``pos`` is a per-request ``(B,)`` vector of positions,
-and negative positions mark idle slots whose cache writes are skipped (the
-paged decode sends them to a sink page instead).
+and negative positions mark idle slots, which leave their cache rows as
+they were (:func:`~repro_torch.models.common.write_rows`; the paged decode
+sends their writes to a sink page instead).
 
-JAX returns new cache arrays; here the caches are updated **in place**
-(only the live rows are written), which is what lets a 36-layer page pool
-stay one allocation.  The functions still return the cache dict, so the
-call sites read like the reference.
+JAX returns new cache arrays; here the caches are updated **in place**,
+which is what lets a 36-layer page pool stay one allocation.  The
+functions still return the cache dict, so the call sites read like the
+reference.
 
 Caches carry no layer axis here; the transformer stacks them.
 """
@@ -27,8 +28,7 @@ import torch
 from repro_torch.models import kernels_bridge
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
-    ParamSpec, PartitionSpec, apply_rope, constrain, is_fake, rmsnorm, split_heads,
-    write_rows,
+    ParamSpec, PartitionSpec, apply_rope, constrain, rmsnorm, split_heads, write_rows,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -157,33 +157,10 @@ def normalize_pos(pos, batch: int, device=None) -> Tuple[torch.Tensor, torch.Ten
     """Broadcast a scalar-or-(B,) position to ``(B,)`` and derive liveness.
 
     Negative positions mark idle/padding slots: their logits are still
-    computed but their cache writes are skipped.
+    computed but their cache rows stay as they were.
     Returns ``(clamped_pos (B,), live (B,) bool)``."""
     pos = torch.as_tensor(pos, dtype=torch.int64, device=device).expand(batch)
     return pos.clamp(min=0), pos >= 0
-
-
-def live_rows(live: torch.Tensor) -> torch.Tensor:
-    """Indices of the live slots.  Accepts a ``(B,)`` bool mask, or indices
-    already derived from one (the transformer derives them once per decode
-    step, since finding them waits for the device).  A fake mask (the dry
-    run's) holds no data: every slot is priced live."""
-    if live.dtype != torch.bool:
-        return live
-    if is_fake(live):
-        return torch.arange(live.shape[0], device=live.device)
-    return live.nonzero().flatten()
-
-
-def _masked_row_update(
-    cache: torch.Tensor,  # (B, S, ...)
-    new: torch.Tensor,  # (B, 1, ...)
-    idx: torch.Tensor,  # (B,) — row to write, per batch element
-    live: torch.Tensor,  # (B,) bool, or live-slot indices
-) -> torch.Tensor:
-    """Write ``new[b]`` at row ``idx[b]`` of ``cache[b]`` for the live slots
-    only, in place; rows of dead slots stay untouched."""
-    return write_rows(cache, live_rows(live), new, idx)
 
 
 def prefix_valid(pos: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -193,38 +170,47 @@ def prefix_valid(pos: torch.Tensor, max_len: int) -> torch.Tensor:
     return torch.arange(max_len, device=pos.device)[None, :] <= pos.clamp(min=0)[:, None]
 
 
+def _write_token(
+    cache: Dict[str, torch.Tensor],
+    new: Dict[str, torch.Tensor],  # leaf name -> (B, 1, ...) rows of the new token
+    cpos: torch.Tensor,  # (B,) clamped positions
+    live: torch.Tensor,  # (B,) bool
+    valid: Optional[torch.Tensor],  # (B, S) prefix mask of a full cache, or None
+) -> torch.Tensor:
+    """Write the new token's rows into the flat cache: at ``pos``, or in a
+    ring at slot ``pos % W`` with its position in ``slot_pos``.  Returns
+    the ``(B, rows)`` mask of the rows the token attends to: the prefix
+    (``valid``, or built here), or the ring's slots whose position lies in
+    the window ``(pos - W, pos]``."""
+    if "slot_pos" not in cache:
+        for name, rows in new.items():
+            write_rows(cache[name], rows, live, cpos)
+        return prefix_valid(cpos, cache[next(iter(new))].shape[1]) if valid is None else valid
+    slot_pos = cache["slot_pos"]
+    W = slot_pos.shape[1]
+    slot = cpos % W
+    for name, rows in {**new, "slot_pos": cpos[:, None].to(slot_pos.dtype)}.items():
+        write_rows(cache[name], rows, live, slot)
+    c = cpos[:, None]
+    return (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
+
+
 def gqa_decode(
     p: Params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, 1, d)
     cache: Dict[str, torch.Tensor],
     pos,  # (B,) per-slot position of the new token (or scalar)
-    live: Optional[torch.Tensor] = None,  # (B,) bool or indices; None => pos >= 0
     valid: Optional[torch.Tensor] = None,  # (B, S) prefix mask of a full cache
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode against the flat cache: the full ``(B, max_len, KV,
-    hd)`` one, or the ring ``(B, W, KV, hd)`` one with ``slot_pos`` (the new
-    token goes to slot ``pos % W``; a slot is valid while its position lies
-    in the window ``(pos - W, pos]``)."""
+    hd)`` one, or the ring ``(B, W, KV, hd)`` one with ``slot_pos``
+    (:func:`_write_token`)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
-    cpos, derived_live = normalize_pos(pos, B, x.device)
-    live = derived_live if live is None else live
+    cpos, live = normalize_pos(pos, B, x.device)
     q, k_new, v_new = _gqa_qkv_serving(p, cfg, x, cpos[:, None])
-    if "slot_pos" in cache:
-        W = cache["k"].shape[1]
-        slot = cpos % W
-        _masked_row_update(cache["k"], k_new, slot, live)
-        _masked_row_update(cache["v"], v_new, slot, live)
-        slot_pos = cache["slot_pos"]
-        _masked_row_update(slot_pos, cpos[:, None].to(slot_pos.dtype), slot, live)
-        c = cpos[:, None]
-        valid = (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
-    else:
-        _masked_row_update(cache["k"], k_new, cpos, live)
-        _masked_row_update(cache["v"], v_new, cpos, live)
-        if valid is None:
-            valid = prefix_valid(cpos, cache["k"].shape[1])
+    valid = _write_token(cache, {"k": k_new, "v": v_new}, cpos, live, valid)
     o = kernels_bridge.decode_attention(q, cache["k"], cache["v"], valid)
     return o.reshape(B, 1, H * hd) @ p["wo"], cache
 
@@ -415,7 +401,6 @@ def mla_decode(
     x: torch.Tensor,  # (B, 1, d)
     cache: Dict[str, torch.Tensor],
     pos,  # (B,) per-slot position of the new token (or scalar)
-    live: Optional[torch.Tensor] = None,  # (B,) bool or indices; None => pos >= 0
     valid: Optional[torch.Tensor] = None,  # (B, S) prefix mask of a full cache
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weight-absorbed one-token decode: ``w_uk`` folds into the query and
@@ -427,25 +412,11 @@ def mla_decode(
     B = x.shape[0]
     H = cfg.num_heads
     nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    cpos, derived_live = normalize_pos(pos, B, x.device)
-    live = derived_live if live is None else live
+    cpos, live = normalize_pos(pos, B, x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, cpos[:, None])  # (B,1,H,nd), (B,1,H,rd)
     ckv_new, krope_new = _mla_latent(p, cfg, x, cpos[:, None])
+    valid = _write_token(cache, {"ckv": ckv_new, "krope": krope_new}, cpos, live, valid)
     ckv, krope = cache["ckv"], cache["krope"]
-    if "slot_pos" in cache:
-        W = ckv.shape[1]
-        slot = cpos % W
-        _masked_row_update(ckv, ckv_new, slot, live)
-        _masked_row_update(krope, krope_new, slot, live)
-        slot_pos = cache["slot_pos"]
-        _masked_row_update(slot_pos, cpos[:, None].to(slot_pos.dtype), slot, live)
-        c = cpos[:, None]
-        valid = (slot_pos >= 0) & (slot_pos > c - W) & (slot_pos <= c)
-    else:
-        _masked_row_update(ckv, ckv_new, cpos, live)
-        _masked_row_update(krope, krope_new, cpos, live)
-        if valid is None:
-            valid = prefix_valid(cpos, ckv.shape[1])
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, split_heads(p["w_uk"], H, nd))
     scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, krope))

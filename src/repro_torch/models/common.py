@@ -161,13 +161,6 @@ def is_dtensor(t: Any) -> bool:
     return hasattr(t, "device_mesh")
 
 
-def is_fake(t: torch.Tensor) -> bool:
-    """A tensor without data: the dry run's fake tensors, or a DTensor of them."""
-    from torch._subclasses.fake_tensor import FakeTensor
-
-    return isinstance(t.to_local() if is_dtensor(t) else t, FakeTensor)
-
-
 def _as_dtensor(t: torch.Tensor, mesh):
     from torch.distributed.tensor import DTensor, Replicate
 
@@ -229,49 +222,57 @@ def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                             device_mesh=mesh, redistribute_inputs=True)(table, ids))
 
 
-def write_rows(cache: torch.Tensor, rows: torch.Tensor, new: torch.Tensor,
+def write_rows(cache: torch.Tensor, new: torch.Tensor, live: torch.Tensor,
                idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """In place, the live slots ``rows`` only: ``cache[rows, idx[rows]] =
-    new[rows, 0]`` (a row at a position per slot), or without ``idx``
-    ``cache[rows] = new[rows]`` (a slot's whole entry).  A DTensor cache is
-    written shard by shard for every slot (the dry run prices every slot
-    live), each shard keeping the positions that fall in its rows."""
+    """A decode step's cache write, in place, for the slots the ``(B,)``
+    bool mask ``live`` marks: ``cache[b, idx[b]] = new[b, 0]`` (a row at a
+    position per slot), or without ``idx`` ``cache[b] = new[b]`` (a slot's
+    whole entry).
+
+    Every slot writes, at fixed shapes, and nothing looks up which slots
+    are live, so a step never waits for the device and a CUDA graph can
+    hold it: an idle slot's row is written back with its own value, as the
+    reference's ``jnp.where`` does (the paged pools send idle slots to a
+    sink page instead).  A DTensor cache is written shard by shard, each
+    shard keeping the positions that fall in its rows."""
     if not is_dtensor(cache):
-        if idx is None:
-            cache[rows] = new[rows]
-        else:
-            cache[rows, idx[rows]] = new[rows, 0]
+        _write_masked(cache, new, live, idx)
         return cache
-    if rows.shape[0] != cache.shape[0]:
-        raise NotImplementedError("a DTensor cache is written for every slot, none idle")
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = cache.device_mesh
     cache_pl = tuple(cache.placements)
     new_pl = tuple(Replicate() if idx is not None and p == Shard(1) else p for p in cache_pl)
+    slot_pl = tuple(p if p == Shard(0) else Replicate() for p in cache_pl)
     if idx is None:
-        def write(c, n):
-            c.copy_(n)
-
-        local_map(write, out_placements=None, in_placements=(cache_pl, new_pl),
-                  device_mesh=mesh, redistribute_inputs=True)(cache, _as_dtensor(new, mesh))
+        local_map(_write_masked, out_placements=None, in_placements=(cache_pl, new_pl, slot_pl),
+                  device_mesh=mesh, redistribute_inputs=True)(
+            cache, _as_dtensor(new, mesh), _as_dtensor(live, mesh))
         return cache
-    idx_pl = tuple(p if p == Shard(0) else Replicate() for p in cache_pl)
     s0 = _shard_offset(cache, 1)
 
-    def write_at(c, n, i):
+    def write_at(c, n, ok, i):
         j = i - s0
-        ok = (j >= 0) & (j < c.shape[1])
-        j = j.clamp(0, c.shape[1] - 1)
-        b = torch.arange(c.shape[0], device=c.device)
-        cur = c[b, j]
-        c[b, j] = torch.where(ok.view((-1,) + (1,) * (cur.dim() - 1)), n[:, 0], cur)
+        ok = ok & (j >= 0) & (j < c.shape[1])
+        _write_masked(c, n, ok, j.clamp(0, c.shape[1] - 1))
 
-    local_map(write_at, out_placements=None, in_placements=(cache_pl, new_pl, idx_pl),
+    local_map(write_at, out_placements=None,
+              in_placements=(cache_pl, new_pl, slot_pl, slot_pl),
               device_mesh=mesh, redistribute_inputs=True)(
-        cache, _as_dtensor(new, mesh), _as_dtensor(idx, mesh))
+        cache, _as_dtensor(new, mesh), _as_dtensor(live, mesh), _as_dtensor(idx, mesh))
     return cache
+
+
+def _write_masked(c: torch.Tensor, n: torch.Tensor, live: torch.Tensor,
+                  idx: Optional[torch.Tensor] = None) -> None:
+    """:func:`write_rows` on plain tensors."""
+    if idx is None:
+        torch.where(live.view((-1,) + (1,) * (c.dim() - 1)), n, c, out=c)
+        return
+    b = torch.arange(c.shape[0], device=c.device)
+    cur = c[b, idx]
+    c[b, idx] = torch.where(live.view((-1,) + (1,) * (cur.dim() - 1)), n[:, 0], cur)
 
 
 def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:

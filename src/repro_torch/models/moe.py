@@ -86,7 +86,10 @@ def _dispatch(
     w_f = w.reshape(T * k).to(xf.dtype)
     mine = (idx_f >= 0) & (idx_f < n_local)
     safe_e = idx_f.clamp(0, n_local - 1)
-    onehot = F.one_hot(safe_e, n_local) * mine[:, None]  # (T*k, n_local)
+    # one-hot by comparison: F.one_hot checks its indices' range by reading
+    # them on the host (on the CPU), which a decode step must not do
+    onehot = ((safe_e[:, None] == torch.arange(n_local, device=xf.device))
+              & mine[:, None]).long()  # (T*k, n_local)
     pos_f = ((onehot.cumsum(dim=0) - onehot) * onehot).sum(dim=-1)  # slot within expert
     keep = (mine & (pos_f < C)).to(xf.dtype)
     safe_pos = pos_f.clamp(max=C - 1)
@@ -103,7 +106,7 @@ def _dispatch(
 
 def _aux(idx: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor:
     """The Switch-style load-balance loss of one routing."""
-    frac = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+    frac = (idx[:, :1] == torch.arange(E, device=idx.device)).float().mean(dim=0)
     return E * (frac * probs.mean(dim=0)).sum()
 
 

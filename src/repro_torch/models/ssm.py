@@ -8,9 +8,8 @@ the depthwise conv.
 
 Prefill's scan goes through :func:`repro_torch.models.kernels_bridge.ssm_scan`
 (the CUDA kernel on a card, its plain version on the CPU); the JAX package
-calls its jnp ``ssd_chunked`` there.  Decode updates the cache in place,
-for the live rows only; the functions still return it, as the reference's
-do.
+calls its jnp ``ssd_chunked`` there.  Decode updates the cache in place;
+the functions still return it, as the reference's do.
 """
 
 from __future__ import annotations
@@ -22,7 +21,6 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models import kernels_bridge
-from repro_torch.models.attention import live_rows
 from repro_torch.models.common import (
     ParamSpec, PartitionSpec, rmsnorm, split_heads, write_rows,
 )
@@ -170,10 +168,10 @@ def ssm_cache_specs(cfg: ModelConfig, dp: Tuple[str, ...]) -> Dict[str, Partitio
 
 def ssm_decode(
     p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-    live: Optional[torch.Tensor] = None,  # (B,) bool or live-slot indices; None: all live
+    live: torch.Tensor,  # (B,) bool
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token step, x: (B, 1, d).  The cache is updated in place for the
-    live rows only: dead slots keep their conv tail and state."""
+    """One-token step, x: (B, 1, d).  The cache is updated in place: idle
+    slots keep their conv tail and state (:func:`write_rows`)."""
     B = x.shape[0]
     di, n, H, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC, dt = _project(p, x)  # (B,1,·)
@@ -191,11 +189,6 @@ def ssm_decode(
     y = y + p["D"][None, :, None] * xs.float()
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    if live is None:
-        cache["conv"].copy_(hist[:, 1:])
-        cache["state"].copy_(new_state)
-    else:
-        rows = live_rows(live)
-        write_rows(cache["conv"], rows, hist[:, 1:])
-        write_rows(cache["state"], rows, new_state)
+    write_rows(cache["conv"], hist[:, 1:], live)
+    write_rows(cache["state"], new_state, live)
     return y @ p["w_out"], cache

@@ -401,36 +401,10 @@ class Model:
                 x = embeds.to(DTYPES[cfg.dtype])
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        eps = cfg.norm_eps
-        caches = []
-        y = None  # the last sublayer's output, added to x by the next norm
-        for lp in self._blocks(params):
-            if cfg.arch_type in BLOCK_TYPES:
-                with span("model.attention"):
-                    h, x = _add_norm(x, y, lp["ln1"], eps)
-                    a, c = _attn_prefill(lp["attn"], cfg, h, positions, self.kv_hint)
-                with span("model.mlp"):
-                    h, x = _add_norm(x, settle(a), lp["ln2"], eps)
-                    y = self._ffn(lp, h)
-            elif cfg.arch_type == "ssm":
-                with span("model.ssm"):
-                    h, x = _add_norm(x, y, lp["ln"], eps)
-                    y, c = ssm_mod.ssm_prefill(lp, cfg, h, lengths)
-                    y = settle(y)
-            else:  # hybrid superblock: Mamba2 sublayers, then the shared attention
-                c = {}
-                for j in range(cfg.shared_attn_every):
-                    mp = lp[f"mamba_{j}"]
-                    with span("model.ssm"):
-                        h, x = _add_norm(x, y, mp["ln"], eps)
-                        y, c[f"mamba_{j}"] = ssm_mod.ssm_prefill(mp, cfg, h, lengths)
-                        y = settle(y)
-                shared = params["shared_attn"]
-                with span("model.attention"):
-                    h, x = _add_norm(x, y, shared["ln"], eps)
-                    a, c["attn"] = _attn_prefill(shared, cfg, h, positions, self.kv_hint)
-                    y = settle(a)
-            caches.append(c)
+        x, y, caches = self._walk(
+            params, x, None,
+            lambda p, h, lc: _attn_prefill(p, cfg, h, positions, self.kv_hint),
+            lambda p, h, lc: ssm_mod.ssm_prefill(p, cfg, h, lengths))
         cache = {f"dense_{i}": caches[i] for i in range(self.n_dense)}
         cache["layers"] = _stack(caches[self.n_dense:])
         with span("model.head"):
@@ -440,8 +414,52 @@ class Model:
             else:
                 rows = (torch.arange(B, device=x.device), lengths.long() - 1)
                 x, y = x[rows][:, None, :], y[rows][:, None, :]
-            h, _ = _add_norm(x, y, params["final_norm"], eps)
+            h, _ = _add_norm(x, y, params["final_norm"], cfg.norm_eps)
             return self._project(params, h), cache
+
+    def _walk(self, params: Params, x: torch.Tensor, cache: Optional[Params],
+              attend, ssm) -> Tuple[torch.Tensor, torch.Tensor, List[Params]]:
+        """The one block loop of the prefill and the decode steps, over the
+        residual stream ``x``: ``attend(p, h, lc)`` and ``ssm(p, h, lc)``
+        run an attention or a Mamba2 sublayer on the normed ``h`` against
+        its block's part ``lc`` of ``cache`` (None at prefill, whose
+        sublayers make it) and return (output, cache).  Returns (the
+        stream, the last sublayer's output for the final norm to add, the
+        blocks' caches)."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        blocks = self._blocks(params)
+        caches = [None] * len(blocks) if cache is None else self._blocks(cache)
+        out = []
+        y = None  # the last sublayer's output, added to x by the next norm
+        for lp, lc in zip(blocks, caches):
+            if cfg.arch_type in BLOCK_TYPES:
+                with span("model.attention"):
+                    h, x = _add_norm(x, y, lp["ln1"], eps)
+                    a, c = attend(lp["attn"], h, lc)
+                with span("model.mlp"):
+                    h, x = _add_norm(x, settle(a), lp["ln2"], eps)
+                    y = self._ffn(lp, h)
+            elif cfg.arch_type == "ssm":
+                with span("model.ssm"):
+                    h, x = _add_norm(x, y, lp["ln"], eps)
+                    y, c = ssm(lp, h, lc)
+                    y = settle(y)
+            else:  # hybrid superblock: Mamba2 sublayers, then the shared attention
+                lc, c = lc or {}, {}
+                for j in range(cfg.shared_attn_every):
+                    mp = lp[f"mamba_{j}"]
+                    with span("model.ssm"):
+                        h, x = _add_norm(x, y, mp["ln"], eps)
+                        y, c[f"mamba_{j}"] = ssm(mp, h, lc.get(f"mamba_{j}"))
+                        y = settle(y)
+                shared = params["shared_attn"]
+                with span("model.attention"):
+                    h, x = _add_norm(x, y, shared["ln"], eps)
+                    a, c["attn"] = attend(shared, h, lc.get("attn"))
+                    y = settle(a)
+            out.append(c)
+        return x, y, out
 
     # ----------------------------------------------------------------- decode --
     def _layer_cache(self, batch: int, device: torch.device, attn_cache) -> Params:
@@ -550,22 +568,14 @@ class Model:
         self, params: Params, cache: Params, token: torch.Tensor, pos
     ) -> Tuple[torch.Tensor, Params]:
         """Like :meth:`decode_step` but with attention KV in page pools
-        (``cache`` from :meth:`init_paged_cache`).  Of its layers only the
-        hybrid's SSM ones look up the live slots, which waits for the
-        device."""
+        (``cache`` from :meth:`init_paged_cache`); idle slots write the
+        pools' sink page."""
         return self._decode(params, cache, token, pos, paged=True)
 
     def _decode(self, params, cache, token, pos, paged: bool):
         cfg = self.cfg
-        eps = cfg.norm_eps
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device).expand(B)
-        # live-slot indices, found once per step: finding them waits for the
-        # device, which every layer doing it would turn into one wait a layer
-        # (the paged attention needs none: idle slots write its sink page)
-        rows = None
-        if not paged or cfg.arch_type == "hybrid":
-            rows = attn.live_rows(pos >= 0)
         # the full flat cache's prefix mask is the same for every layer:
         # built once per step (a ring cache's comes from each layer's slot_pos)
         valid = None
@@ -575,39 +585,19 @@ class Model:
                 rows_of = kv["ckv"] if cfg.attention_kind == "mla" else kv["k"]
                 valid = attn.prefix_valid(pos, rows_of.shape[2])
         decode = attn.mla_decode if cfg.attention_kind == "mla" else attn.gqa_decode
+        live = pos >= 0 if cfg.arch_type in ("ssm", "hybrid") else None
 
         def attend(p, h, lc):
             if paged:
-                return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos)[0]
-            return decode(p, cfg, h, lc, pos, rows, valid)[0]
+                return attn.gqa_decode_paged(p, cfg, h, lc, cache["page_tables"], pos)
+            return decode(p, cfg, h, lc, pos, valid)
 
         with span("model.embed"):
             x = self.embed(params, token)
-        y = None  # the last sublayer's output, added to x by the next norm
-        for lp, lc in zip(self._blocks(params), self._blocks(cache)):
-            if cfg.arch_type in BLOCK_TYPES:
-                with span("model.attention"):
-                    h, x = _add_norm(x, y, lp["ln1"], eps)
-                    a = attend(lp["attn"], h, lc)
-                with span("model.mlp"):
-                    h, x = _add_norm(x, settle(a), lp["ln2"], eps)
-                    y = self._ffn(lp, h)
-            elif cfg.arch_type == "ssm":
-                with span("model.ssm"):
-                    h, x = _add_norm(x, y, lp["ln"], eps)
-                    y = settle(ssm_mod.ssm_decode(lp, cfg, h, lc, rows)[0])
-            else:  # hybrid superblock
-                for j in range(cfg.shared_attn_every):
-                    mp = lp[f"mamba_{j}"]
-                    with span("model.ssm"):
-                        h, x = _add_norm(x, y, mp["ln"], eps)
-                        y = settle(ssm_mod.ssm_decode(mp, cfg, h, lc[f"mamba_{j}"], rows)[0])
-                shared = params["shared_attn"]
-                with span("model.attention"):
-                    h, x = _add_norm(x, y, shared["ln"], eps)
-                    y = settle(attend(shared, h, lc["attn"]))
+        x, y, _ = self._walk(params, x, cache, attend,
+                             lambda p, h, lc: ssm_mod.ssm_decode(p, cfg, h, lc, live))
         with span("model.head"):
-            h, _ = _add_norm(x, y, params["final_norm"], eps)
+            h, _ = _add_norm(x, y, params["final_norm"], cfg.norm_eps)
             return self._project(params, h), cache
 
     # ------------------------------------------------------ prefill scatter --

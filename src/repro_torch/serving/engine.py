@@ -39,9 +39,10 @@ replayed at every later one, so its thousands of launches leave the host
 as one.  The graph reads its inputs by address: the step copies the
 tokens and positions into static device buffers and the page tables into
 the cache's, and admissions, which stay eager, write the same pools in
-place.  Idle slots write into the pools' sink page.  :meth:`Engine.close`
-frees the graph.  The flat backend, and the MoE and hybrid paged steps,
-run eagerly.
+place.  Every decode step has fixed shapes and never waits for the card
+(idle slots write the pools' sink page, or their own rows back), but only
+the dense paged step is captured: the flat backend, and the MoE and hybrid
+paged steps, run eagerly.  :meth:`Engine.close` frees the graph.
 
 Each call names its phases for a torch profiler
 (:func:`repro_torch.kernels.ops.span`; no-ops without one):
@@ -251,7 +252,8 @@ class Engine:
             self.cache = model.init_cache(batch, max_len, device=self.device)
             self._decode = model.decode_step
         # on a card the dense stack's paged step runs as a CUDA graph (the
-        # hybrid's SSM layers look up the live rows; the MoE step stays eager)
+        # other steps have fixed shapes too, but were never checked under
+        # capture: they stay eager)
         self._graph: Optional[DecodeGraph] = None
         if backend == "paged" and self.device.type == "cuda" and cfg.arch_type in DENSE_TYPES:
             self._graph = self._decode = DecodeGraph(self._decode)

@@ -149,6 +149,20 @@ def test_node_mesh_counts_the_gradient_and_tensor_parallel_all_reduces():
     assert 0 < decode.peak_bytes < one.peak_bytes
 
 
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_ssm_decode_step_dry_runs_on_the_node(family):
+    """The SSM and hybrid smoke decode steps on the fake (2, 4) node: the
+    conv tails and states, DTensors with the batch over "data" and the
+    heads over "model", take the masked cache write shard by shard, and
+    nothing crosses "data".  Each device takes about an eighth of the
+    one-device FLOPs."""
+    cfg = get_smoke_config(FAMILIES[family])
+    node, _, _ = count_step(cfg, STEPS["decode"], make_production_mesh())
+    assert not [k for k in node.collectives_by_axis if k.endswith("/data")]
+    one, _, _ = count_step(cfg, STEPS["decode"], make_slice_mesh(1, 1))
+    assert one.flops / 8 <= node.flops < one.flops / 7
+
+
 def test_mtp_train_step_dry_runs_on_the_node(reference):
     """deepseek-v3-671b's smoke train step (MoE, MLA and the MTP head) on the
     fake (2, 4) node: it syncs gradients over "data", and each device takes

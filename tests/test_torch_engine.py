@@ -387,7 +387,7 @@ def _decode_paged_by_rows(p, cfg, x, cache, page_tables, pos):
     cpos, live = tattn.normalize_pos(pos, B, x.device)
     q, k_new, v_new = tattn._gqa_qkv(p, cfg, x, cpos[:, None])
     ps = cache["pool_k"].shape[1]
-    rows = tattn.live_rows(live)
+    rows = live.nonzero().flatten()
     page = page_tables[rows, cpos[rows] // ps].long()
     cache["pool_k"][page, cpos[rows] % ps] = k_new[rows, 0]
     cache["pool_v"][page, cpos[rows] % ps] = v_new[rows, 0]

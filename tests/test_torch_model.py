@@ -13,6 +13,7 @@ torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
@@ -20,6 +21,7 @@ from repro.models import Model as JaxModel  # noqa: E402
 from repro.training.checkpoint import _flatten  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import long_context_variant  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.common import flatten  # noqa: E402
 
@@ -283,3 +285,75 @@ def test_scatter_prefill_into_pages_matches_jax(arch):
     assert_trees_close(without_sink(tout, jout), jout, 1e-5)
     pools = tcache["layers"].get("attn", tcache["layers"])  # the hybrid's sit under attn/
     assert tout["layers"].get("attn", tout["layers"])["pool_k"] is pools["pool_k"]  # in place
+
+
+# ops that copy a device value to the host, and so wait for the device
+HOST_SYNCS = {"aten.nonzero", "aten._local_scalar_dense", "aten.item"}
+
+
+class AtenOps(TorchDispatchMode):
+    """The name of every aten op dispatched under it, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch,window,paged", [
+    ("granite-20b", None, False),
+    ("qwen3-8b", 8, False),  # the ring cache
+    ("deepseek-v2-236b", None, False),  # MLA's latent cache
+    ("mamba2-370m", None, False),
+    ("zamba2-1.2b", None, True),
+    ("zamba2-1.2b", None, False),
+], ids=["granite-flat", "qwen3-ring", "deepseek-v2-mla", "mamba2", "zamba2-paged",
+        "zamba2-flat"])
+def test_decode_step_never_waits_for_the_device_and_idle_slots_keep_their_rows(
+        arch, window, paged):
+    """One decode step with idle slots at both ends and in the middle
+    dispatches no op that reads a device value on the host (every slot
+    writes, at fixed shapes), and leaves every idle slot's cache rows (k/v,
+    the ring's slot_pos, MLA's latent rows, the SSM conv tail and state,
+    the pages its table names) equal to before, while each live slot's
+    change."""
+    cfg = get_smoke_config(arch)
+    m = Model(long_context_variant(cfg, window) if window else cfg)
+    params = m.init(0, device="cpu")
+    live = np.array([False, True, False, True, False])
+    B, max_len, ps = live.size, 32, 4
+    if paged:
+        cache = m.init_paged_cache(B, B * max_len // ps, ps, max_len // ps, device="cpu")
+    else:
+        cache = m.init_cache(B, max_len, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for key, leaf in flatten(cache).items():
+        if key == "page_tables":  # every slot its own pages
+            perm = torch.randperm(leaf.numel(), generator=gen)
+            leaf.copy_(perm.view(leaf.shape))
+        elif key.endswith("slot_pos"):  # positions no step below writes
+            leaf.copy_(torch.randint(1, 9, leaf.shape, generator=gen))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    before = {k: v.clone() for k, v in flatten(cache).items()}
+    pos = torch.from_numpy(np.where(live, [0, 9, 0, 14, 0], -1))
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen)
+    step = m.decode_step_paged if paged else m.decode_step
+    with AtenOps() as seen:
+        step(params, cache, tok, pos)
+    assert not HOST_SYNCS & set(seen.names)
+    slots = {"idle": torch.from_numpy(np.flatnonzero(~live)),
+             "live": torch.from_numpy(np.flatnonzero(live))}
+    for key, leaf in flatten(cache).items():
+        axis = 1 if key.startswith("layers/") else 0  # past a stacked layer axis
+        for side, idx in slots.items():
+            if key.endswith(("pool_k", "pool_v")):  # the pages the slots' tables name
+                idx = cache["page_tables"][idx].flatten().long()
+            rows = (leaf.index_select(axis, idx), before[key].index_select(axis, idx))
+            if side == "idle":
+                assert torch.equal(*rows), key
+            elif key != "page_tables":
+                assert not torch.equal(*rows), key

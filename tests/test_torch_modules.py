@@ -143,7 +143,5 @@ def test_gqa_decode_paged_matches_jax_and_leaves_pools_untouched_for_idle_slots(
 def test_normalize_pos_and_live_rows():
     cpos, live = tattn.normalize_pos(torch.tensor([3, -1, 0]), 3)
     assert cpos.tolist() == [3, 0, 0] and live.tolist() == [True, False, True]
-    assert tattn.live_rows(live).tolist() == [0, 2]
-    assert tattn.live_rows(torch.tensor([0, 2])).tolist() == [0, 2]
     cpos, live = tattn.normalize_pos(7, 2)
     assert cpos.tolist() == [7, 7] and live.tolist() == [True, True]

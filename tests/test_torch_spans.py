@@ -11,6 +11,8 @@ torch.set_num_threads(2)
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+import dataclasses  # noqa: E402
+
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -46,9 +48,37 @@ def spans(prof):
     return out
 
 
-@pytest.mark.parametrize("backend", ["paged", "flat"])
-def test_one_admission_and_one_step_record_every_span_nested(model, backend):
-    m, params = model
+def family_model(arch):
+    """The smoke model of ``arch``; ``+gqa`` swaps MLA for GQA (the MoE
+    family on the paged backend)."""
+    cfg = get_smoke_config(arch.removesuffix("+gqa"))
+    if arch.endswith("+gqa"):
+        cfg = dataclasses.replace(cfg, attention_kind="gqa")
+    m = Model(cfg)
+    return m, m.init(0, device="cpu")
+
+
+def model_spans(cfg):
+    """How often each model span opens in one prefill or decode step: one
+    ``model.attention`` an attention block or hybrid superblock, one
+    ``model.mlp`` an MLP or MoE block, one ``model.ssm`` a Mamba2 layer."""
+    L = cfg.num_layers
+    if cfg.arch_type == "ssm":
+        return {"model.attention": 0, "model.mlp": 0, "model.ssm": L}
+    if cfg.arch_type == "hybrid":
+        return {"model.attention": L // cfg.shared_attn_every, "model.mlp": 0, "model.ssm": L}
+    return {"model.attention": L, "model.mlp": L, "model.ssm": 0}
+
+
+# (arch, backend): qwen3-8b's cases keep their first ids
+SPAN_CASES = [pytest.param(ARCH, b, id=b) for b in ("paged", "flat")] + [
+    pytest.param(a, b, id=f"{a}-{b}")
+    for a in ("mamba2-370m", "zamba2-1.2b", "deepseek-v2-236b+gqa") for b in ("paged", "flat")]
+
+
+@pytest.mark.parametrize("arch,backend", SPAN_CASES)
+def test_one_admission_and_one_step_record_every_span_nested(model, arch, backend):
+    m, params = model if arch == ARCH else family_model(arch)
     eng = Engine(m, params, batch=2, max_len=MAX_LEN, kv_backend=backend)
     req = Request(rid=0, prompt=prompts(m.cfg, 1)[0], max_new_tokens=4)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -60,14 +90,12 @@ def test_one_admission_and_one_step_record_every_span_nested(model, backend):
     want += [(f"engine.{call}.{p}", f"engine.{call}") for call in ("admit", "step")
              for p in PHASES]
     assert engine == sorted(want)
-    layers = m.cfg.num_layers
+    want = {**model_spans(m.cfg), "model.embed": 1, "model.head": 1}
     for call in ("admit", "step"):
         inside = [name for name, up in got if up == f"engine.{call}.model"]
-        for name, n in (("model.attention", layers), ("model.mlp", layers),
-                        ("model.embed", 1), ("model.head", 1)):
+        for name, n in want.items():
             assert inside.count(name) == n, (call, name)
         assert inside.count("model.scatter") == (call == "admit")
-        assert "model.ssm" not in inside
     assert all(up is not None for name, up in got if name.startswith("model."))
 
 
